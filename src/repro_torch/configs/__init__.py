@@ -1,0 +1,6 @@
+from repro_torch.configs.base import ModelConfig  # noqa: F401
+from repro_torch.configs.registry import (  # noqa: F401
+    REGISTRY,
+    get_config,
+    reduce_config,
+)

@@ -1,0 +1,94 @@
+"""Model configuration (copy of ``repro.configs.base.ModelConfig``).
+
+The config is a frozen dataclass so it can key per-shape caches safely.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyper-parameters (decoder-only LM backbone).
+
+    ``family`` drives block selection in the reference: dense, moe, ssm,
+    hybrid, vlm, audio. The port runs the dense family so far.
+    """
+
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                  # 0 -> d_model // num_heads
+
+    # --- attention features ---
+    rope_theta: float = 10_000.0
+    qkv_bias: bool = False
+    sliding_window: int = 0            # 0 = full attention
+    local_global: bool = False         # gemma2: alternate local(SWA)/global
+    attn_softcap: float = 0.0          # gemma2: tanh softcap on attn logits
+    final_softcap: float = 0.0         # gemma2: tanh softcap on LM logits
+
+    # --- MoE ---
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    shared_expert: bool = False        # llama4-style always-on expert
+    capacity_factor: float = 1.25
+
+    # --- SSM (mamba2) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 256               # SSD chunk length
+    attn_every: int = 0                # hybrid: shared attn block cadence
+
+    # --- embeddings / io ---
+    embed_inputs: bool = True          # False: inputs arrive as embeddings (vlm)
+    tie_embeddings: bool = True
+
+    # --- execution ---
+    packed_attention: bool = False     # exact-causal tile packing (perf)
+    dtype: str = "bfloat16"            # activations / compute
+    param_dtype: str = "bfloat16"      # stored weights (serving)
+    hybrid_chunk: int = 2048           # PrefillOnly hybrid prefilling chunk (0 = off)
+    remat: bool = True                 # activation checkpointing for train
+    logits_chunk: int = 2048           # chunked LM-head/xent (0 = off)
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.num_heads > 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    # ---- derived quantities ----
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def has_ssm(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    def param_count(self) -> int:
+        """Analytic parameter count of the dense family."""
+        if self.family != "dense":
+            raise NotImplementedError(
+                f"param_count for family {self.family!r} comes with its port")
+        D, F, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
+        H, KV, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        embed = V * D
+        lm_head = 0 if self.tie_embeddings else V * D
+        attn = D * (H * hd) + 2 * D * (KV * hd) + (H * hd) * D
+        per_layer = attn + 3 * D * F + 2 * D
+        return embed + lm_head + L * per_layer + D
+
+    def kv_bytes_per_token(self, bytes_per_el: int = 2) -> int:
+        """KV-cache bytes per token across all layers (dense family)."""
+        return self.num_layers * 2 * self.num_kv_heads * self.head_dim * bytes_per_el

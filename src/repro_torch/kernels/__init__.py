@@ -1,0 +1,13 @@
+"""Hand-written Hopper kernels of the port, each beside its plain PyTorch
+version and with a launch counter:
+
+  rmsnorm          csrc/rmsnorm.cu          <- repro/kernels/rmsnorm.py
+  flash_attention  csrc/flash_attention.cu  <- repro/kernels/flash_attention.py
+                                               (dense mode + q_offset)
+  fused_mlp        csrc/fused_mlp.cu        <- repro/kernels/fused_mlp.py
+
+Sources are built on first use (``_build``); nothing is built or loaded at
+import time.
+"""
+
+SOURCES = ("rmsnorm", "flash_attention", "fused_mlp")

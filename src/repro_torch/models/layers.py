@@ -1,0 +1,131 @@
+"""Layer library, dense subset: RMSNorm, RoPE, attention, SwiGLU, embedding.
+
+Port of ``repro.models.layers`` (``rms_norm``, ``rope_apply``,
+``_qkv_project``, the non-mesh non-segmented branch of
+``attention_prefill``, ``mlp_apply``, ``embed_apply``). Parameters are plain
+dicts of tensors, activations run in the config's dtype, softmax/norm
+internals in f32. RMSNorm, attention and the MLP go through the kernel
+wrappers of ``repro_torch.kernels``: hand-written Hopper kernels on CUDA
+tensors, their plain PyTorch versions on CPU tensors. Token-wise layers run
+under hybrid prefilling (``core.hybrid_prefill.chunked_map``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.hybrid_prefill import chunked_map
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import fused_mlp as _mlp
+from repro_torch.kernels import rmsnorm as _rms
+
+NEG_INF = -1e30
+# padding-kv position sentinel (the reference's PAD_POS; used by the
+# positioned attention mode of the packed-hit slice)
+PAD_POS = 1 << 30
+
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return TORCH_DTYPES[name]
+
+
+# --------------------------------------------------------------------------
+# norms / rope
+# --------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` (norm weights start at 0)."""
+    return _rms.rmsnorm(x, weight, eps)
+
+
+def rope_apply(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, d), positions: (B, S) int. Split-half RoPE, f32 inside."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freqs      # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention block (projections + rope + attention)
+# --------------------------------------------------------------------------
+
+def _qkv_project(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, chunk: int):
+    """Token-wise QKV projection + RoPE, chunked under hybrid prefilling."""
+    B, S, D = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def proj(xc):
+        q = xc @ p["wq"]
+        k = xc @ p["wk"]
+        v = xc @ p["wv"]
+        if cfg.qkv_bias:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        return torch.cat([q, k, v], dim=-1)
+
+    qkv = chunked_map(proj, x, chunk)
+    q, k, v = torch.split(qkv, [H * hd, KV * hd, KV * hd], dim=-1)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    q = rope_apply(q, positions, cfg.rope_theta)
+    k = rope_apply(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0, softcap: float = 0.0,
+              q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, d), k/v: (B, Sk, KV, d) -> (B, Sq, H, d); query i sits
+    at position ``q_offset + i`` (the reference's ``blocked_attention``)."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap, q_offset=q_offset)
+
+
+def attention_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+                      positions: torch.Tensor, window: int = 0,
+                      chunk: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-sequence causal attention. Returns (out, k, v) — the caller
+    decides how much of (k, v) to keep (suffix KV discard happens there)."""
+    B, S, D = x.shape
+    q, k, v = _qkv_project(p, x, cfg, positions, chunk)
+    out = attention(q, k, v, window=window, softcap=cfg.attn_softcap)
+    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
+    out = chunked_map(lambda oc: oc @ p["wo"], out, chunk)
+    return out, k, v
+
+
+# --------------------------------------------------------------------------
+# SwiGLU MLP
+# --------------------------------------------------------------------------
+
+def mlp_apply(p: Dict, x: torch.Tensor, chunk: int = 0) -> torch.Tensor:
+    """SwiGLU MLP through the fused kernel (rounding: ``silu(g) * u`` cast
+    to x's dtype, as the Pallas kernel does), chunked under hybrid
+    prefilling."""
+    return chunked_map(
+        lambda xc: _mlp.fused_mlp(xc, p["w_gate"], p["w_up"], p["w_down"]),
+        x, chunk)
+
+
+# --------------------------------------------------------------------------
+# embedding
+# --------------------------------------------------------------------------
+
+def embed_apply(p: Dict, tokens: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    return p["tok"][tokens].to(dtype)

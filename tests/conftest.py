@@ -22,3 +22,9 @@ else:
     settings.register_profile("ci", deadline=None, max_examples=25,
                               derandomize=True)
     settings.load_profile("ci")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with the CUDA toolkit (nvcc); "
+        "skips on a CPU-only host")

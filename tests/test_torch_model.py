@@ -1,0 +1,207 @@
+"""The port's model layers and serving forwards against the JAX package.
+
+Both sides get the same parameters: the reference tree from
+``repro.runtime.sharding.materialize``, with its zero-initialized norms and
+biases overwritten by seeded random values (so the ``(1 + w)`` scale and the
+qkv bias are exercised), carried to the port by ``params_from_numpy``.
+Forwards are compared in float32 at the reduced qwen1.5-0.5b config: logits
+and kept KV within 1e-4 (different summation orders over a 4-layer model
+with O(1) activations).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.configs import reduce_config as j_reduce_config
+from repro.models import layers as jl
+from repro.models import transformer as jtfm
+from repro.models.model import build
+from repro.runtime.sharding import materialize
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fused_mlp as fm
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.models import layers as tl
+from repro_torch.models import transformer as ttfm
+from repro_torch.models.params import init_params, params_from_numpy
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _configs(chunk: int):
+    over = dict(hybrid_chunk=chunk, dtype="float32", param_dtype="float32")
+    jcfg = j_reduce_config(j_get_config("qwen1.5-0.5b"), **over)
+    tcfg = reduce_config(get_config("qwen1.5-0.5b"), **over)
+    return jcfg, tcfg
+
+
+def _np_tree(jcfg, seed: int = 0):
+    """Reference parameter tree as numpy, zero leaves made random."""
+    tree = materialize(jax.random.PRNGKey(seed), build(jcfg).defs(),
+                       jnp.float32)
+    tree = jax.tree_util.tree_map(np.asarray, tree)
+    rng = np.random.default_rng(seed)
+
+    def fill(a):
+        if not a.any():
+            return (0.1 * rng.standard_normal(a.shape)).astype(np.float32)
+        return a
+
+    return jax.tree_util.tree_map(fill, tree)
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.fixture(scope="module", params=[0, 16], ids=["chunk0", "chunk16"])
+def model(request):
+    jcfg, tcfg = _configs(request.param)
+    tree = _np_tree(jcfg)
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    tparams = params_from_numpy(tree, tcfg, device="cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
+def test_config_copy_matches_reference():
+    for chunk in (0, 2048):
+        jcfg, tcfg = _configs(chunk)
+        assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    assert (dataclasses.asdict(j_get_config("qwen1.5-0.5b"))
+            == dataclasses.asdict(get_config("qwen1.5-0.5b")))
+    full = get_config("qwen1.5-0.5b")
+    assert full.param_count() == j_get_config("qwen1.5-0.5b").param_count()
+
+
+def test_init_params_tree_matches_reference_shapes():
+    jcfg, tcfg = _configs(0)
+    ref = jax.tree_util.tree_map(lambda a: tuple(a.shape), _np_tree(jcfg))
+    got = init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    got_shapes = jax.tree_util.tree_map(lambda t: tuple(t.shape), got)
+    assert got_shapes == ref
+    # the reference init scheme: zeros for norms/biases, scaled elsewhere
+    blocks = got["blocks"]
+    assert not blocks["ln1"].any() and not blocks["attn"]["bq"].any()
+    std = blocks["mlp"]["w_gate"].std().item()
+    assert abs(std - tcfg.d_model ** -0.5) < 0.1 * tcfg.d_model ** -0.5
+    again = init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    assert torch.equal(again["embed"]["tok"], got["embed"]["tok"])
+
+
+def test_params_from_numpy_rejects_a_foreign_tree():
+    jcfg, tcfg = _configs(0)
+    tree = _np_tree(jcfg)
+    del tree["final_norm"]
+    with pytest.raises(ValueError):
+        params_from_numpy(tree, tcfg, device="cpu")
+    tree = _np_tree(jcfg)
+    tree["embed"]["tok"] = tree["embed"]["tok"][:-1]
+    with pytest.raises(ValueError):
+        params_from_numpy(tree, tcfg, device="cpu")
+
+
+def test_rope_apply_matches_reference():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 24, 4, 32)).astype(np.float32)
+    pos = rng.integers(0, 4000, (2, 24)).astype(np.int32)
+    want = jl.rope_apply(jnp.asarray(x), jnp.asarray(pos), 1e6)
+    got = tl.rope_apply(torch.from_numpy(x), torch.from_numpy(pos), 1e6)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+def test_qkv_project_matches_reference(model):
+    jcfg, tcfg, jparams, tparams = model
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((1, 40, tcfg.d_model)).astype(np.float32)
+    pos = np.arange(40, dtype=np.int32)[None] + 7
+    jp = jax.tree_util.tree_map(lambda a: a[1], jparams["blocks"]["attn"])
+    tp = ttfm.layer_params(tparams["blocks"], 1)["attn"]
+    want = jl._qkv_project(jp, jnp.asarray(x), jcfg, jnp.asarray(pos),
+                           jcfg.hybrid_chunk)
+    got = tl._qkv_project(tp, torch.from_numpy(x), tcfg,
+                          torch.from_numpy(pos), tcfg.hybrid_chunk)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), **TOL)
+
+
+def test_mlp_apply_matches_reference(model):
+    jcfg, tcfg, jparams, tparams = model
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((1, 40, tcfg.d_model)).astype(np.float32)
+    jp = jax.tree_util.tree_map(lambda a: a[0], jparams["blocks"]["mlp"])
+    tp = ttfm.layer_params(tparams["blocks"], 0)["mlp"]
+    want = jl.mlp_apply(jp, jnp.asarray(x), chunk=jcfg.hybrid_chunk)
+    got = tl.mlp_apply(tp, torch.from_numpy(x), chunk=tcfg.hybrid_chunk)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("S,keep", [(48, 32), (40, 0), (32, 64)])
+def test_prefill_matches_reference(model, S, keep):
+    jcfg, tcfg, jparams, tparams = model
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, tcfg.vocab_size, (1, S)).astype(np.int32)
+    last = np.array([S - 5], np.int32)
+    want_logits, want_kv = jtfm.prefill(
+        jparams, jcfg, {"tokens": jnp.asarray(toks)}, kv_keep=keep,
+        last_index=jnp.asarray(last))
+    got_logits, got_kv = ttfm.prefill(
+        tparams, tcfg, {"tokens": torch.from_numpy(toks).long()},
+        kv_keep=keep, last_index=torch.from_numpy(last))
+    assert got_logits.shape == (1, tcfg.vocab_size)
+    assert got_logits.dtype == torch.float32
+    np.testing.assert_allclose(_np(got_logits), _np(want_logits), **TOL)
+    if keep == 0:
+        assert got_kv is None and want_kv is None
+        return
+    for name in ("k", "v"):
+        assert tuple(got_kv[name].shape) == want_kv[name].shape == (
+            tcfg.num_layers, 1, min(keep, S), tcfg.num_kv_heads,
+            tcfg.head_dim)
+        np.testing.assert_allclose(_np(got_kv[name]), _np(want_kv[name]),
+                                   **TOL)
+
+
+@pytest.mark.parametrize("P,S,keep", [(32, 16, 48), (48, 24, 56), (32, 16, 0)])
+def test_prefill_with_prefix_matches_reference(model, P, S, keep):
+    """Solo-hit forward: the same cached prefix KV (the reference's own,
+    from a prefill of the prefix) through both packages' suffix path."""
+    jcfg, tcfg, jparams, tparams = model
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, tcfg.vocab_size, (1, P + S)).astype(np.int32)
+    _, pkv = jtfm.prefill(jparams, jcfg, {"tokens": jnp.asarray(toks[:, :P])},
+                          kv_keep=P)
+    pkv_np = {n: np.array(a) for n, a in pkv.items()}
+    last = np.array([S - 1], np.int32)
+    want_logits, want_kv = jtfm.prefill_with_prefix(
+        jparams, jcfg, {"tokens": jnp.asarray(toks[:, P:])},
+        {n: jnp.asarray(a) for n, a in pkv_np.items()}, P, kv_keep=keep,
+        last_index=jnp.asarray(last))
+    got_logits, got_kv = ttfm.prefill_with_prefix(
+        tparams, tcfg, {"tokens": torch.from_numpy(toks[:, P:]).long()},
+        {n: torch.from_numpy(a) for n, a in pkv_np.items()}, P,
+        kv_keep=keep, last_index=torch.from_numpy(last))
+    np.testing.assert_allclose(_np(got_logits), _np(want_logits), **TOL)
+    for name in ("k", "v"):
+        assert tuple(got_kv[name].shape) == want_kv[name].shape
+        np.testing.assert_allclose(_np(got_kv[name]), _np(want_kv[name]),
+                                   **TOL)
+    # the hit path is exact: it equals a cold prefill of prefix + suffix
+    cold, _ = ttfm.prefill(tparams, tcfg,
+                           {"tokens": torch.from_numpy(toks).long()})
+    np.testing.assert_allclose(_np(got_logits), _np(cold), **TOL)
+
+
+def test_cpu_forwards_launch_no_kernel(model):
+    """On CPU tensors every kernel wrapper takes its plain version: the
+    launch counters stay at 0 through a full prefill."""
+    _, tcfg, _, tparams = model
+    toks = torch.zeros((1, 32), dtype=torch.long)
+    ttfm.prefill(tparams, tcfg, {"tokens": toks}, kv_keep=16)
+    assert (rn.launches, fa.launches, fm.launches) == (0, 0, 0)
