@@ -6,24 +6,41 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU (H100):
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
-then runs five phases and raises on the first failure:
+then runs these phases and raises on the first failure:
 
   1. prints the card (``nvidia-smi`` name and power limit) and build time;
   2. holds each kernel against its plain PyTorch version on the card at
      the main path's shapes, in bf16 (and once in f32), and times kernel,
-     plain version and one library call used only as a yardstick;
-  3. runs a full-width 24-layer qwen1.5-0.5b ``prefill`` (random weights
-     from a seed) through the kernels and through the plain versions, and
-     compares the last-token logits;
-  4. drives the main path: ``PrefillOnlyEngine(device="cuda")`` runs the
-     profile run, then serves requests of two users that each share a
+     plain version and one library call used only as a yardstick; for
+     flash attention in its three modes: dense, segmented (a packed miss:
+     S=2048 of mixed segments and a padding tail) and positioned (a packed
+     hit: 4 rows over 1024/768/512/1024-token prefixes), where it also
+     holds the kernel's executed-tile map against the plain tile rule
+     (``tile_rule``) and prints the bound reckoned from the live layout;
+  3. runs full-width 24-layer qwen1.5-0.5b forwards (random weights from a
+     seed) through the kernels and through the plain versions —
+     ``prefill`` (S=512), ``prefill_packed`` and
+     ``prefill_packed_with_prefix`` at the phase-2 shapes — and compares
+     the logits (per segment: max and mean |Δ| limits, and the plain
+     argmax within the kernel's top 5);
+  4. drives the solo path: ``PrefillOnlyEngine(max_pack_requests=1)`` runs
+     the profile run, then serves requests of two users that each share a
      1030-token profile prefix — misses first, then prefix-cache hits —
      checks that every forward launched each kernel (49, 24 and 24 launches
      per forward) and that the scores of every hit, at both (S, P) shapes,
      match a cold engine's; prints the warm step latency per shape, then
      traces one more miss step and hit step with ``torch.profiler``;
-  5. prints the ``kernels`` JSON line, then the result line
-     ``{"ok": true, "device": {...}}`` last.
+  5. drives the packed path: ``PrefillOnlyEngine()`` (packing on, the
+     reference's defaults) runs the profile run, then waves of distinct
+     users' misses that co-pack into packed-miss steps and waves of those
+     users' prefix-cache hits that co-pack into packed-hit steps (Nb >= 4,
+     pmax = 1024); every score is held against a solo engine's on the same
+     weights and requests, launches are 49/24/24 per forward (the packed
+     forwards through the segmented and positioned modes); prints the warm
+     packed step walls per shape beside the solo walls of the same
+     requests, and traces one warm packed-miss and packed-hit step;
+  6. prints the ``kernels`` JSON line (every kernel and attention mode),
+     then the result line ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when run
 outside a checkout.
@@ -50,14 +67,30 @@ BF16_TOL = (2e-2, 2e-2)         # |kernel - plain| <= atol + rtol * |plain|
 F32_TOL = (1e-4, 1e-4)
 LOGITS_MAX_TOL = 0.15           # full-width logits, std ~0.6 at random init
 LOGITS_MEAN_TOL = 0.02
+TOP_K = 5                       # the plain argmax ranks in the kernel's top 5
 SCORE_GATE = 2e-2               # the repo's engine score gate
 SPIN_CYCLES = 2_000_000         # ~1 ms of device spin ahead of a timed call
 
-TPU_KERNELS = {
-    "rmsnorm": "src/repro/kernels/rmsnorm.py:25",
-    "flash_attention": "src/repro/kernels/flash_attention.py:166",
-    "fused_mlp": "src/repro/kernels/fused_mlp.py:46",
-}
+# packed-miss kernel shape: segments of mixed lengths, then padding slack
+SEG_LENS = (64, 400, 128, 256, 96, 300, 180, 72, 350, 110)
+SEG_S = 2048
+# packed-hit kernel shape: per-row cached prefix and suffix lengths
+HIT_PLENS, HIT_SLENS, HIT_S, HIT_PMAX = (1024, 768, 512, 1024), \
+    (128, 96, 160, 128), 512, 1024
+
+# JSON entries: (name, launch counter, TPU kernel it replaces); the entry
+# "flash_attention" is the attention kernel's dense mode
+KERNELS = (
+    ("rmsnorm", "rmsnorm", "src/repro/kernels/rmsnorm.py:25"),
+    ("flash_attention", "flash_attention[dense]",
+     "src/repro/kernels/flash_attention.py:166"),
+    ("flash_attention[segmented]", "flash_attention[segmented]",
+     "src/repro/kernels/flash_attention.py:100"),
+    ("flash_attention[positioned]", "flash_attention[positioned]",
+     "src/repro/kernels/flash_attention.py:78"),
+    ("fused_mlp", "fused_mlp", "src/repro/kernels/fused_mlp.py:46"),
+)
+SOURCE = {"rmsnorm": "rmsnorm", "fused_mlp": "fused_mlp"}
 
 
 def fail(msg: str) -> None:
@@ -98,16 +131,24 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     results = check_kernels(torch, dev)
+    results.update(check_packed_kernels(torch, dev))
     check_full_prefill(torch, dev)
-    launches = run_engine(torch, dev)
+    check_packed_forwards(torch, dev)
+    solo = run_engine(torch, dev)
+    packed = run_packed_engine(torch, dev)
+    launches = {k: solo.get(k, 0) + packed.get(k, 0)
+                for k in set(solo) | set(packed)}
+    print(f"main path launches (solo engine + packed engine): {launches}",
+          flush=True)
 
     lines = []
-    for name in SOURCES:
+    for name, counter, replaces in KERNELS:
         r = results[name]
         lines.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": TPU_KERNELS[name], "launches": launches[name],
+            "source": "src/repro_torch/kernels/csrc/"
+                      f"{SOURCE.get(name, 'flash_attention')}.cu",
+            "replaces": replaces, "launches": launches[counter],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -272,6 +313,181 @@ def check_kernels(torch, dev):
     return out
 
 
+def packed_case(dev, slens, S, plens=None, pmax=0):
+    """A packed step's model inputs as the engine lays them out
+    (``tfm.packed_layout``; suffix segments of ``slens`` in S slots, each
+    over its cached prefix of ``plens`` in a (len(plens), pmax) buffer), on
+    ``dev``, and ``ids``: the attention's segment ids and positions as the
+    model derives them (``seg_ids`` for both sides of a packed miss;
+    ``tfm.packed_prefix_layout`` for a packed hit)."""
+    from repro_torch.models import transformer as tfm
+    lay = tfm.packed_layout(plens or [0] * len(slens), slens, S,
+                            smax=max(slens), pmax=pmax)
+    lay = {k: t.to(dev) for k, t in lay.items()}
+    if plens is None:
+        return lay, {"seg_q": lay["seg_ids"], "seg_k": lay["seg_ids"]}
+    seg_q, seg_k, pos_k = tfm.packed_prefix_layout(
+        lay["positions"], lay["prefix_pos"], lay["seg_qidx"])
+    return lay, {"seg_q": seg_q, "seg_k": seg_k, "pos_q": lay["positions"],
+                 "pos_k": pos_k}
+
+
+def tile_rule(Sq: int, Sk: int, *, causal: bool = True, window: int = 0,
+              seg_q=None, seg_k=None, pos_q=None, pos_k=None,
+              block_q: int = 32, block_k: int = 32):
+    """(B, nq, nk) int32 map of the (query block, key tile) pairs the
+    attention kernel runs (1) or skips (0): the plain rule its executed-tile
+    map is held against, here and in the tests. It is the Pallas kernel's
+    rule (``src/repro/kernels/flash_attention.py:78-111``) with the block and
+    tile ranges taken over real tokens only (with segment ids, ``seg >=
+    0``): a padding query attends nothing, so it does not widen its block's
+    range, where the Pallas kernel lets the block that holds a padding tail
+    run every tile of its causal range.
+
+    A tile runs iff, without positions, it lies in the block's structural
+    key range (causal: ``j*bk <= last row``; window: ``j*bk + bk - 1 >=
+    first row - window + 1``); with segment ids, the block's and the tile's
+    id ranges meet and the tile holds an id >= 0; with positions,
+    ``min(pos_k) <= max(pos_q)`` (causal) and ``max(pos_k) >= min(pos_q) -
+    window + 1`` (window)."""
+    import torch
+    import torch.nn.functional as F
+    big = 2 ** 31 - 1
+    B = 1 if seg_q is None else seg_q.shape[0]
+    dev = "cpu" if seg_q is None else seg_q.device
+    nq, nk = -(-Sq // block_q), -(-Sk // block_k)
+
+    def ranges(x, real, n, block):
+        """Per-block (min, max) of x over its real entries; a block without
+        one gets (big, -big), which meets no range."""
+        pad = n * block - x.shape[1]
+        lo = F.pad(torch.where(real, x.long(), big), (0, pad), value=big)
+        hi = F.pad(torch.where(real, x.long(), -big), (0, pad), value=-big)
+        return (lo.reshape(B, n, block).amin(-1),
+                hi.reshape(B, n, block).amax(-1))
+
+    i = torch.arange(nq, device=dev)[:, None]
+    j = torch.arange(nk, device=dev)[None, :]
+    run = torch.ones((nq, nk), dtype=torch.bool, device=dev)
+    if pos_q is None:
+        last = torch.clamp((i + 1) * block_q, max=Sq) - 1
+        if causal:
+            run = run & (j * block_k <= last)
+        if window > 0:
+            run = run & (j * block_k + block_k - 1
+                         >= i * block_q - window + 1)
+    run = run[None].expand(B, nq, nk)
+    if seg_q is not None:
+        q_real, k_real = seg_q >= 0, seg_k >= 0
+        qlo, qhi = ranges(seg_q, q_real, nq, block_q)
+        klo, khi = ranges(seg_k, k_real, nk, block_k)
+        run = run & (qlo[:, :, None] <= khi[:, None, :]) \
+            & (qhi[:, :, None] >= klo[:, None, :]) & (khi[:, None, :] >= 0)
+    if pos_q is not None:
+        plo, phi = ranges(pos_q, q_real, nq, block_q)
+        klo, khi = ranges(pos_k, k_real, nk, block_k)
+        if causal:
+            run = run & (klo[:, None, :] <= phi[:, :, None])
+        if window > 0:
+            run = run & (khi[:, None, :] >= plo[:, :, None] - window + 1)
+    return run.to(torch.int32)
+
+
+def live_bytes(ids, Sq: int, H: int, KV: int, d: int) -> int:
+    """Bytes a packed attention call must move, reckoned from its live
+    layout: q of the real query rows (``seg_q >= 0``; a padding row's output
+    is 0 whatever its q), the bf16 output of all Sq rows, K and V of the
+    real keys (``seg_k >= 0``; no query attends a padding key), and each
+    distinct id or position array once (``seg_q is seg_k`` in a packed
+    miss)."""
+    q_real = int((ids["seg_q"] >= 0).sum())
+    k_real = int((ids["seg_k"] >= 0).sum())
+    arrays = {t.data_ptr(): t.numel() * t.element_size()
+              for t in ids.values()}
+    return (2 * (q_real * H * d + Sq * H * d + 2 * k_real * KV * d)
+            + sum(arrays.values()))
+
+
+def check_packed_kernels(torch, dev):
+    """Phase 2, packed modes: the segmented (packed miss) and positioned
+    (packed hit) attention at full width against the plain version, in f32
+    and bf16; the kernel's executed-tile map against the plain tile rule;
+    times and live-layout bounds."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.runtime.hw import H100_SXM as chip
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    H = KV = 16
+    d = 64
+    cases = (
+        ("segmented", SEG_S, SEG_S,
+         packed_case(dev, SEG_LENS, SEG_S)[1],
+         f"S={SEG_S} segments={len(SEG_LENS)} ({min(SEG_LENS)}..."
+         f"{max(SEG_LENS)}, tail {SEG_S - sum(SEG_LENS)})"),
+        ("positioned", HIT_S, len(HIT_PLENS) * HIT_PMAX + HIT_S,
+         packed_case(dev, HIT_SLENS, HIT_S, HIT_PLENS, HIT_PMAX)[1],
+         f"Sq={HIT_S} Sk={len(HIT_PLENS) * HIT_PMAX + HIT_S} "
+         f"plens={HIT_PLENS} suffixes={HIT_SLENS} pmax={HIT_PMAX}"),
+    )
+    out = {}
+    for label, Sq, Sk, ids, desc in cases:
+        errs = {}
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            q = (torch.randn((1, Sq, H, d), generator=gen, device=dev)
+                 ).to(dtype)
+            k, v = ((torch.randn((1, Sk, KV, d), generator=gen, device=dev)
+                     ).to(dtype) for _ in range(2))
+            tmap = torch.empty((1, -(-Sq // 32), -(-Sk // 32)),
+                               dtype=torch.int32, device=dev)
+            got = fa.flash_attention(q, k, v, tile_map=tmap, **ids)
+            want = fa.flash_attention_plain(q, k, v, **ids)
+            errs[dtype] = compare(torch, got, want, tol,
+                                  f"flash_attention {label} {dtype}")
+            pad = ids["seg_q"][0] < 0
+            if pad.any() and got[0, pad].abs().max().item() != 0.0:
+                fail(f"flash_attention {label}: a padding row is not 0")
+        want_map = tile_rule(Sq, Sk, **ids)
+        causal_map = tile_rule(Sq, Sk)              # structural causal rule
+        ran, total = int(tmap.sum()), tmap.numel()
+        print(f"tiles {label}: kernel ran {ran} of {total} 32x32 tiles, "
+              f"plain tile rule {int(want_map.sum())} "
+              f"(causal-only structural rule {int(causal_map.sum())}); "
+              f"maps equal: {bool(torch.equal(tmap, want_map))}", flush=True)
+        if not torch.equal(tmap, want_map):
+            fail(f"flash_attention {label}: executed-tile map differs from "
+                 f"the plain tile rule")
+        live = fa._live_mask(Sq, Sk, causal=True, window=0, q_offset=0,
+                             kv_valid=None, device=dev, **ids)
+        pairs = int(live.sum().item()) * H
+        nbytes = live_bytes(ids, Sq, H, KV, d)
+        b_ms, b_by = bound(chip, 4.0 * d * pairs, nbytes)
+        print(f"bound {label}: {nbytes} bytes (live layout), {pairs} live "
+              f"(q, k) pairs over {H} heads -> {b_ms:.6f} ms ({b_by})",
+              flush=True)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = live[:, None]                          # (1, 1, Sq, Sk)
+
+        def library(qt=qt, kt=kt, vt=vt, mask=mask):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        row = dict(
+            max_abs_err=errs[torch.bfloat16],
+            f32_err=errs[torch.float32],
+            ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, **ids)),
+            plain_ms=time_ms(torch,
+                             lambda: fa.flash_attention_plain(q, k, v,
+                                                              **ids)),
+            library_ms=time_ms(torch, library),
+            bound_ms=b_ms, bound_by=b_by,
+            shape=f"{desc} H={H} KV={KV} d={d} bf16, live pairs/head "
+                  f"{pairs // H}, tiles run {ran}/{total}")
+        report(f"flash_attention[{label}]", row)
+        out[f"flash_attention[{label}]"] = row
+    return out
+
+
 def report(name: str, row) -> None:
     lib, f32 = row["library_ms"], row["f32_err"]
     print(f"kernel {name} [{row['shape']}]: max_abs_err="
@@ -305,12 +521,26 @@ def plain_versions():
 
 
 def reset_launches() -> None:
-    for m in kernel_modules().values():
-        m.launches = 0
+    mods = kernel_modules()
+    mods["rmsnorm"].launches = mods["fused_mlp"].launches = 0
+    modes = mods["flash_attention"].mode_launches
+    for mode in modes:
+        modes[mode] = 0
 
 
 def read_launches():
-    return {name: m.launches for name, m in kernel_modules().items()}
+    """Launches per kernel (attention: the sum of its modes' counts), and
+    of the attention kernel per mode."""
+    mods = kernel_modules()
+    out = {name: m.launches for name, m in mods.items()}
+    for mode, n in mods["flash_attention"].mode_launches.items():
+        out[f"flash_attention[{mode}]"] = n
+    return out
+
+
+def kernel_launches(launches):
+    """The three kernels' totals (every attention mode counted once)."""
+    return {k: launches[k] for k in kernel_modules()}
 
 
 def per_forward(cfg):
@@ -341,7 +571,7 @@ def check_full_prefill(torch, dev) -> None:
     with torch.no_grad():
         got, _ = tfm.prefill(params, cfg, {"tokens": toks}, kv_keep=512)
         torch.cuda.synchronize()
-        if read_launches() != per_forward(cfg):
+        if kernel_launches(read_launches()) != per_forward(cfg):
             fail(f"full prefill launches {read_launches()}, expected "
                  f"{per_forward(cfg)}")
         with plain_versions():
@@ -358,6 +588,101 @@ def check_full_prefill(torch, dev) -> None:
         fail(f"full prefill logits disagree: max {err.max().item():.3e} "
              f"(<= {LOGITS_MAX_TOL}), mean {err.mean().item():.3e} "
              f"(<= {LOGITS_MEAN_TOL})")
+
+
+def compare_rows(torch, got, want, what: str) -> None:
+    """Per-segment logits, kernels against plain versions: max and mean |Δ|
+    within the full-width limits, and the plain version's argmax among the
+    kernel's top 5 (an equal argmax means little at random init, where the
+    top two of 151,936 logits often lie closer than bf16's rounding over
+    24 layers; the top-two gap is printed beside each)."""
+    if not torch.isfinite(got).all():
+        fail(f"{what}: non-finite logits")
+    for n in range(got.shape[0]):
+        err = (got[n] - want[n]).abs()
+        a_want = int(want[n].argmax())
+        top = got[n].topk(TOP_K).indices.tolist()
+        two = want[n].topk(2).values
+        rank = top.index(a_want) + 1 if a_want in top else None
+        print(f"{what} segment {n}: max|kernel-plain|={err.max().item():.4e} "
+              f"mean={err.mean().item():.4e} plain argmax {a_want} at "
+              f"kernel rank {rank if rank else f'>{TOP_K}'}, plain top-two "
+              f"gap {(two[0] - two[1]).item():.4e}", flush=True)
+        if (err.max().item() > LOGITS_MAX_TOL
+                or err.mean().item() > LOGITS_MEAN_TOL or rank is None):
+            fail(f"{what} segment {n}: logits disagree")
+
+
+def check_packed_forwards(torch, dev) -> None:
+    """Phase 3, packed: full-width ``prefill_packed`` (the segmented kernel
+    shape) and ``prefill_packed_with_prefix`` (the positioned one, over
+    prefix KV made by ``prefill``) through the kernels and through the plain
+    versions; 49/24/24 launches per forward, every attention launch in the
+    forward's mode."""
+    import numpy as np
+    from repro_torch.models import transformer as tfm
+    cfg, params = model(torch, dev)
+    rng = np.random.default_rng(SEED + 2)
+    V, Lyr = cfg.vocab_size, cfg.num_layers
+
+    def tokens(lens, S):
+        toks = torch.zeros((1, S), dtype=torch.long)
+        off = 0
+        for L in lens:
+            toks[0, off:off + L] = torch.from_numpy(rng.integers(0, V, L))
+            off += L
+        return toks.to(dev)
+
+    lay, _ = packed_case(dev, SEG_LENS, SEG_S)
+    toks = tokens(SEG_LENS, SEG_S)
+    kv_idx = torch.nonzero(lay["seg_ids"][0] >= 0)[:, 0]
+
+    def miss():
+        return tfm.prefill_packed(params, cfg, toks, lay["seg_ids"],
+                                  lay["positions"], lay["last_indices"],
+                                  kv_indices=kv_idx)
+
+    N = len(HIT_PLENS)
+    hlay, _ = packed_case(dev, HIT_SLENS, HIT_S, HIT_PLENS, HIT_PMAX)
+    htoks = tokens(HIT_SLENS, HIT_S)
+    shape = (Lyr, N, HIT_PMAX, cfg.num_kv_heads, cfg.head_dim)
+    pk = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    pv = torch.zeros_like(pk)
+    with torch.no_grad():
+        for n, p in enumerate(HIT_PLENS):
+            ptoks = torch.as_tensor(rng.integers(0, V, (1, p)), device=dev)
+            _, kv = tfm.prefill(params, cfg, {"tokens": ptoks}, kv_keep=p)
+            pk[:, n:n + 1, :p] = kv["k"]
+            pv[:, n:n + 1, :p] = kv["v"]
+
+    def hit():
+        return tfm.prefill_packed_with_prefix(
+            params, cfg, htoks, hlay["positions"], hlay["last_indices"],
+            {"k": pk, "v": pv}, hlay["prefix_pos"], hlay["seg_qidx"],
+            kv_indices=torch.arange(HIT_S, device=dev))
+
+    for name, fn, mode in (("prefill_packed", miss, "segmented"),
+                           ("prefill_packed_with_prefix", hit,
+                            "positioned")):
+        reset_launches()
+        with torch.no_grad():
+            got, got_kv = fn()
+            torch.cuda.synchronize()
+            launches = read_launches()
+            with plain_versions():
+                want, want_kv = fn()
+            torch.cuda.synchronize()
+        if (kernel_launches(launches) != per_forward(cfg)
+                or launches[f"flash_attention[{mode}]"] != Lyr):
+            fail(f"{name} launches {launches}, expected {per_forward(cfg)} "
+                 f"with every attention launch {mode}")
+        kv_err = max((got_kv[k].float() - want_kv[k].float()).abs().max()
+                     .item() for k in ("k", "v"))
+        what = f"full {name} {cfg.dtype}"
+        print(f"{what}: {got.shape[0]} segments, logits std="
+              f"{want.std().item():.4f}, gathered KV max|kernel-plain|="
+              f"{kv_err:.4e}", flush=True)
+        compare_rows(torch, got, want, what)
 
 
 def _leaves(tree):
@@ -404,7 +729,9 @@ def run_engine(torch, dev):
     expect = {k: v * eng.forwards for k, v in per_forward(cfg).items()}
     print(f"launches over {eng.forwards} forwards: {launches} "
           f"(expected {expect})", flush=True)
-    if launches != expect:
+    if kernel_launches(launches) != expect or (
+            launches["flash_attention[segmented]"]
+            or launches["flash_attention[positioned]"]):
         fail("the main path did not launch every kernel once per use")
 
     cached = [res["n_cached"] for _, res, _ in served]
@@ -449,54 +776,203 @@ def run_engine(torch, dev):
     return launches
 
 
+def run_packed_engine(torch, dev):
+    """Phase 5: the packed path. Packing on (the reference's defaults, and
+    the profile run's autotune); each round brings four new users whose
+    profiles (HIT_PLENS tokens) arrive as one wave of misses, then waves of
+    their prefix-cache hits (HIT_SLENS-token posts). A solo engine on the
+    same weights serves the same waves; every score must agree."""
+    import numpy as np
+    from repro_torch.core.engine import EngineConfig, PrefillOnlyEngine
+    cfg, params = model(torch, dev)
+    rng = np.random.default_rng(SEED + 3)
+    V = cfg.vocab_size
+
+    def round_waves(n_hit_waves: int):
+        users = [rng.integers(0, V, p).tolist() for p in HIT_PLENS]
+        waves = [("miss", users)]
+        for _ in range(n_hit_waves):
+            waves.append(("hit", [u + rng.integers(0, V, s).tolist()
+                                  for u, s in zip(users, HIT_SLENS)]))
+        return waves
+
+    waves = round_waves(2) + round_waves(2)
+    eng = PrefillOnlyEngine(cfg, params, EngineConfig(
+        cache_capacity_tokens=65536), device=dev)
+    reset_launches()                         # the packed path starts here
+    eng.profile()
+    print(f"packed engine: profile fit {eng.jct_model.a * 1e3:.4f} ms/token "
+          f"+ {eng.jct_model.b * 1e3:.3f} ms; autotuned pack_token_budget="
+          f"{eng.ecfg.pack_token_budget} max_pack_requests="
+          f"{eng.ecfg.max_pack_requests} pack_prefix_budget="
+          f"{eng.ecfg.pack_prefix_budget}", flush=True)
+    def serve(engine, reqs):
+        ids = [engine.submit(t, allowed_tokens=(YES, NO)) for t in reqs]
+        recs = []
+        while engine.queue:
+            engine.step()
+            recs.append(engine.batch_records[-1])
+        return [engine.results[i] for i in ids], recs
+
+    packed = []
+    for kind, reqs in waves:
+        got, precs = serve(eng, reqs)
+        packed.append((kind, got, precs))
+        for rec in precs:
+            print(f"packed step kind={rec.kind} n={rec.n_requests} S={rec.S} "
+                  f"Nb={rec.Nb} smax={rec.smax} pmax={rec.pmax} K={rec.K} "
+                  f"wall_ms={rec.wall * 1e3:.3f} first_use={rec.compiled}",
+                  flush=True)
+    torch.cuda.synchronize()
+    launches = read_launches()               # the packed path ends here
+    # the same waves through a solo engine (after the count was read)
+    solo = PrefillOnlyEngine(cfg, params, EngineConfig(
+        max_pack_requests=1, cache_capacity_tokens=65536), device=dev)
+    served = []
+    for (kind, got, precs), (_, reqs) in zip(packed, waves):
+        want, srecs = serve(solo, reqs)
+        served.append((kind, got, want, precs, srecs))
+    kinds = [r.kind for r in eng.batch_records]
+    n_miss, n_hit = kinds.count("miss"), kinds.count("hit")
+    expect = {k: v * eng.forwards for k, v in per_forward(cfg).items()}
+    print(f"packed engine launches over {eng.forwards} forwards "
+          f"({n_miss} packed-miss, {n_hit} packed-hit, "
+          f"{eng.forwards - n_miss - n_hit} solo incl. profile): {launches}",
+          flush=True)
+    Lyr = cfg.num_layers
+    if (kernel_launches(launches) != expect
+            or launches["flash_attention[segmented]"] != Lyr * n_miss
+            or launches["flash_attention[positioned]"] != Lyr * n_hit):
+        fail("the packed path did not launch every kernel once per use, in "
+             "its forward's mode")
+    for kind in ("miss", "hit"):
+        if not any(r.kind == kind and r.n_requests > 1
+                   for r in eng.batch_records):
+            fail(f"no packed {kind} step with more than one request ran")
+    if not any(r.kind == "hit" and r.Nb >= 4 and r.pmax == HIT_PMAX
+               for r in eng.batch_records):
+        fail(f"no packed hit step with Nb >= 4 and pmax = {HIT_PMAX}")
+
+    worst = 0.0
+    for kind, got, want, _, _ in served:
+        for g, w in zip(got, want):
+            if g["n_cached"] != w["n_cached"] or "corrupt" in g:
+                fail(f"packed vs solo: {g} vs {w}")
+            worst = max(worst, max(abs(g["scores"][t] - w["scores"][t])
+                                   for t in (YES, NO)))
+    print(f"packed engine vs solo engine, max |score diff| over "
+          f"{sum(len(g) for _, g, _, _, _ in served)} requests: "
+          f"{worst:.3e} (gate {SCORE_GATE}); stats: "
+          f"{ {k: eng.stats()[k] for k in ('packed_steps', 'packed_requests', 'packed_hit_requests', 'pack_skew_splits')} }",
+          flush=True)
+    if worst >= SCORE_GATE:
+        fail("packed scores disagree with the solo engine's")
+
+    # warm packed step walls per shape beside the solo walls of the same
+    # requests (a wave counts on the solo side only when all its solo steps
+    # were warm)
+    table = {}
+    for kind, _, _, precs, srecs in served:
+        solo_ms = (sum(r.wall for r in srecs) * 1e3
+                   if not any(r.compiled for r in srecs) else None)
+        for rec in precs:
+            key = (rec.kind, rec.S, rec.Nb, rec.smax, rec.pmax)
+            row = table.setdefault(key, ([], []))
+            if not rec.compiled:
+                row[0].append(rec.wall * 1e3)
+        if solo_ms is not None:
+            table.setdefault(("wave", kind), ([], []))[1].append(
+                (solo_ms, sum(r.wall for r in precs) * 1e3,
+                 all(not r.compiled for r in precs)))
+    for key, (walls, _) in sorted((k, v) for k, v in table.items()
+                                  if k[0] != "wave"):
+        if walls:
+            print(f"packed step latency kind={key[0]} S={key[1]} Nb={key[2]} "
+                  f"smax={key[3]} pmax={key[4]}: warm wall median "
+                  f"{statistics.median(walls):.3f} ms (n={len(walls)})",
+                  flush=True)
+    for kind in ("miss", "hit"):
+        pairs = [(s, p) for s, p, warm in table.get(("wave", kind),
+                                                    ([], []))[1] if warm]
+        if pairs:
+            print(f"wave of 4 {kind} requests: packed steps summed, warm "
+                  f"median "
+                  f"{statistics.median(p for _, p in pairs):.3f} ms vs solo "
+                  f"steps summed {statistics.median(s for s, _ in pairs):.3f}"
+                  f" ms (n={len(pairs)} waves)", flush=True)
+
+    # one more warm packed-miss step and packed-hit step, traced
+    for kind, reqs in round_waves(1):
+        for t in reqs:
+            eng.submit(t, allowed_tokens=(YES, NO))
+        trace_one_step(torch, eng, kind, packed=True)
+    return launches
+
+
 def trace_steps(torch, eng, cfg, rng) -> None:
-    """One more warm miss step and one warm hit step, each under
-    ``torch.profiler``: device time per kernel, of the other device ops
-    (projections, RoPE, embedding, LM head) and the device's idle share of
-    the step's wall. Runs after the main path's launch counts were read."""
+    """One more warm miss step and one warm hit step (solo)."""
+    user = rng.integers(0, cfg.vocab_size, PROFILE_LEN).tolist()
+    for label in ("miss", "hit"):
+        eng.submit(user + rng.integers(0, cfg.vocab_size, POST_LEN).tolist(),
+                   allowed_tokens=(YES, NO))
+        trace_one_step(torch, eng, label)
+
+
+def trace_one_step(torch, eng, label: str, packed: bool = False) -> None:
+    """Run the engine's next step under ``torch.profiler``: device time per
+    kernel, of the other device ops (projections, RoPE, embedding, LM head,
+    KV copies) and the device's idle share of the step's wall; then drain
+    the queue unprofiled. Runs after the main path's launch counts were
+    read. ``label`` is the kind the step must be: ``miss``/``hit`` (solo
+    steps) or, with ``packed``, a packed step of that kind."""
     from torch.profiler import ProfilerActivity, profile
     groups = (("flash_fwd", "flash_attention"), ("fused_mlp", "fused_mlp"),
               ("rmsnorm", "rmsnorm"))
-    user = rng.integers(0, cfg.vocab_size, PROFILE_LEN).tolist()
-    for label in ("miss", "hit"):
-        rid = eng.submit(user + rng.integers(0, cfg.vocab_size,
-                                             POST_LEN).tolist(),
-                         allowed_tokens=(YES, NO))
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            eng.step()
-        rec = eng.batch_records[-1]
-        if (eng.results[rid]["n_cached"] > 0) != (label == "hit") \
-                or rec.compiled:
-            fail(f"traced {label} step was not a warm {label}")
-        dev_ms, n = {}, {}
-        evs = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-        for e in evs:
-            g = next((g for k, g in groups if k in e.name), "other")
-            dev_ms[g] = dev_ms.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
-            n[g] = n.get(g, 0) + 1
-        busy = sum(dev_ms.values())
-        wall = rec.wall * 1e3
-        print(f"trace {label} S={rec.S} P={rec.pmax}: step wall {wall:.3f} ms "
-              f"(profiled), device busy {busy:.3f} ms, idle share "
-              f"{'not measured' if not busy else f'{1 - busy / wall:.4f}'}; "
-              f"device ms (launches) per group: "
-              + ", ".join(f"{g} {dev_ms[g]:.3f} ({n[g]})"
-                          for g in sorted(dev_ms)), flush=True)
-        # where the idle time sits: the widest gap between device events,
-        # and the host ops with the most self CPU time
-        gap = max(((b.time_range.start - a.time_range.end, b.name)
-                   for a, b in zip(evs, evs[1:])), default=(0, ""))
-        host = sorted((e for e in prof.key_averages()
-                       if e.self_cpu_time_total > 0),
-                      key=lambda e: -e.self_cpu_time_total)[:5]
-        print(f"trace {label}: widest device gap {gap[0] / 1e3:.3f} ms "
-              f"(before {gap[1][:48]}); host self ms (calls): "
-              + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.3f} "
-                          f"({e.count})" for e in host), flush=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+    rec = eng.batch_records[-1]
+    if packed:
+        ok = rec.kind == label and rec.n_requests > 1
+    else:
+        ok = rec.kind == "solo" and (rec.pmax > 0) == (label == "hit")
+    if not ok or rec.compiled:
+        fail(f"traced step was not a warm {'packed ' if packed else ''}"
+             f"{label} step: {rec}")
+    eng.run_until_drained()
+    if packed:
+        label = (f"packed-{label} S={rec.S} Nb={rec.Nb} smax={rec.smax} "
+                 f"pmax={rec.pmax} n={rec.n_requests}")
+    else:
+        label = f"{label} S={rec.S} P={rec.pmax}"
+    dev_ms, n = {}, {}
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    for e in evs:
+        g = next((g for k, g in groups if k in e.name), "other")
+        dev_ms[g] = dev_ms.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
+        n[g] = n.get(g, 0) + 1
+    busy = sum(dev_ms.values())
+    wall = rec.wall * 1e3
+    print(f"trace {label}: step wall {wall:.3f} ms "
+          f"(profiled), device busy {busy:.3f} ms, idle share "
+          f"{'not measured' if not busy else f'{1 - busy / wall:.4f}'}; "
+          f"device ms (launches) per group: "
+          + ", ".join(f"{g} {dev_ms[g]:.3f} ({n[g]})"
+                      for g in sorted(dev_ms)), flush=True)
+    # where the idle time sits: the widest gap between device events,
+    # and the host ops with the most self CPU time
+    gap = max(((b.time_range.start - a.time_range.end, b.name)
+               for a, b in zip(evs, evs[1:])), default=(0, ""))
+    host = sorted((e for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[:5]
+    print(f"trace {label}: widest device gap {gap[0] / 1e3:.3f} ms "
+          f"(before {gap[1][:48]}); host self ms (calls): "
+          + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.3f} "
+                      f"({e.count})" for e in host), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,26 +1,29 @@
-"""PrefillOnly engine — the real-compute serving loop (paper §3), solo path.
+"""PrefillOnly engine — the real-compute serving loop (paper §3).
 
-Port of ``repro.core.engine`` for one request per step (the reference's
-``max_pack_requests <= 1`` branch):
+Port of ``repro.core.engine`` without the DRAM offload tier:
 
-  profile run   -> JCT model fit
+  profile run   -> JCT model fit (+ packing autotune)
   submit()      -> hash-chain the request, enqueue
-  step()        -> Algorithm 1 pick (continuous JCT calibration) -> hybrid
-                   prefill: ``tfm.prefill`` on a cache miss, the cache-hit
-                   suffix path ``tfm.prefill_with_prefix`` when a bucketed
-                   prefix is cached -> suffix-KV discard into the block
-                   cache -> constrained single-token output (the paper's
-                   P(Yes)/P(No) scoring)
+  step()        -> Algorithm 1 pick (continuous JCT calibration) -> batch
+                   formation (prepacking: shape-priced marginal-cost
+                   backfill) -> hybrid prefill -> suffix-KV discard into the
+                   block cache -> constrained single-token output (the
+                   paper's P(Yes)/P(No) scoring)
+
+A step runs one of four forwards: alone, ``tfm.prefill`` on a cache miss or
+the cache-hit suffix path ``tfm.prefill_with_prefix``; packed, the misses'
+``tfm.prefill_packed`` (segmented attention) or, when any member rides a
+cached prefix, ``tfm.prefill_packed_with_prefix`` (positioned attention
+over the members' gathered prefix KV). Each packed request's kept KV is
+gathered out of the forward and inserted under its own chain.
 
 Scheduler, JCT models, ``KVLifecycle`` and ``PrefixCache`` are the port's
 own copies of the reference's. Shapes are bucketed so forwards run a
 bounded set of shapes; the first use of a shape key (which includes
 building the CUDA kernels on a fresh checkout) is flagged
 ``_step_compiled`` and is not a JCT sample, as a jit compile is not in the
-reference.
-
-Prepacked batch formation (``max_pack_requests > 1``) and the DRAM offload
-tier (``offload=True``) come with later slices and raise here.
+reference. The DRAM offload tier (``offload=True``) comes with a later
+slice and raises here.
 """
 from __future__ import annotations
 
@@ -55,8 +58,23 @@ class EngineConfig:
     kv_keep_tokens: int = 10**9        # suffix discard threshold (per request)
     suffix_buckets: Tuple[int, ...] = (64, 128, 256, 512, 1024, 2048)
     prefix_bucket_blocks: int = 4      # reuse granularity: 4 blocks = 64 tok
-    max_pack_requests: int = 1         # >1 (prepacking) comes with the
-                                       # packed-miss slice
+    pack_token_budget: int = 2048      # prepacking: max COMPUTED tokens/step
+    max_pack_requests: int = 16        # prepacking: max segments per step
+                                       # (<=1 disables batch formation)
+    pack_prefix_budget: int = 4096     # packed-hit path: max gathered prefix
+                                       # tokens per step (attended, not
+                                       # computed)
+    prefix_buckets: Tuple[int, ...] = (128, 256, 384, 512, 1024, 2048, 4096)
+                                       # per-segment gathered-prefix pad
+                                       # ladder (the shape key is
+                                       # (S, Nb, smax, pmax, K))
+    autotune_pack: bool = True         # retune both from the profile() fit
+    pack_inflation: float = 2.0        # max anchor-step slowdown autotune
+                                       # accepts vs a typical solo step
+    shape_cost_model: bool = True      # price batch formation with the
+                                       # shape-aware PackedShapeJCT; False
+                                       # falls back to the token-linear
+                                       # proxy on the same marginal rule
     shape_pad_discount: float = 0.25   # unfitted-prior rent per padded slot,
                                        # as a fraction of the linear proxy's
                                        # per-computed-token rate
@@ -64,10 +82,6 @@ class EngineConfig:
                                        # slice
 
     def __post_init__(self):
-        if self.max_pack_requests > 1:
-            raise NotImplementedError(
-                "max_pack_requests > 1 (prepacked batch formation) comes with "
-                "the packed-miss slice of the port; use 1")
         if self.offload:
             raise NotImplementedError(
                 "offload=True (DRAM KV tier) comes with the offload slice of "
@@ -100,9 +114,9 @@ class PrefillOnlyEngine:
         self.cache = PrefixCache(ecfg.cache_capacity_tokens // ecfg.block_size,
                                  ecfg.block_size)
         self.jct_model = LinearProxyJCT()
-        # shape-aware step pricing: the solo path prices its realized
-        # (bucketed suffix, prefix) shape for BatchRecord.predicted_jct and
-        # the in-flight prediction
+        # shape-aware step pricing: batch formation admits by marginal
+        # padded-shape cost; routers/admission/Algorithm-1 keep the
+        # per-request linear proxy on the miss-token axis
         self.shape_jct = PackedShapeJCT(
             fallback=self.jct_model, pad_discount=ecfg.shape_pad_discount)
         # usable_prefix hook: Algorithm-1 scores price requests against the
@@ -115,7 +129,10 @@ class PrefillOnlyEngine:
         # shape keys already run once (the reference's per-shape jit caches)
         self._fresh_keys: set = set()
         self._suffix_keys: set = set()
-        self._last_step_ids: List[int] = []
+        self._packed_keys: set = set()
+        self._packed_hit_keys: set = set()
+        self._last_step_ids: List[int] = []    # all requests served by the
+                                               # most recent step()
         self._inflight: List[int] = []         # popped by step(), not yet in
                                                # results (crash accounting)
         self._inflight_pred = 0.0              # predicted cost of that batch
@@ -125,13 +142,24 @@ class PrefillOnlyEngine:
                                                # runs included)
         self.hit_tokens = 0
         self.total_tokens = 0
+        self.packed_steps = 0                  # steps that executed >1 request
+        self.packed_requests = 0               # requests served via prepacking
+        self.packed_hit_requests = 0           # ...of which rode a cached
+                                               # prefix
         self.padded_slots = 0                  # bucketed forward slots paid
-        self._formed_cost = 0.0                # shape-priced cost of the step
+        self.pack_skew_splits = 0              # packs closed early because the
+                                               # best remaining candidate's
+                                               # padding externality exceeded
+                                               # its benefit
+        self._formed_cost = 0.0                # shape-priced cost of the pack
         self._step_compiled = False            # step hit a fresh shape key
         # result validation: non-finite logits are flagged "corrupt" instead
         # of delivered; consecutive corruption advises a reload
         self.result_guard = NaNGuard(limit=3)
         self.nonfinite_results = 0
+        # brownout hook (serving): when degraded, cache-HIT requests skip
+        # the batched gathered-prefix path and run the solo-suffix path
+        self.degraded = False
         self.batch_records: "deque[BatchRecord]" = deque(maxlen=256)
         self.jct_monitor = JCTCalibrationMonitor(
             self.jct_model, buckets=ecfg.suffix_buckets,
@@ -159,7 +187,33 @@ class PrefillOnlyEngine:
                 self._sync()
                 samples.append((n, 0, time.perf_counter() - t0))
         self.jct_model.fit(samples)
+        if self.ecfg.autotune_pack:
+            self.autotune_packing(ref_len=max(lengths))
         return self.jct_model.pearson_r
+
+    def autotune_packing(self, ref_len: int) -> Tuple[int, int]:
+        """Tune ``pack_token_budget`` / ``max_pack_requests`` from the fitted
+        JCT curve: accept a packed step up to ``pack_inflation``x the cost
+        of a typical solo step (a ``ref_len`` request). With jct = a*S + b
+        the budget solves a*S + b <= inflation * (a*ref + b), so a large
+        fixed cost b relative to the per-token cost a gives a larger
+        budget; the request cap follows as budget / smallest bucket."""
+        m, ecfg = self.jct_model, self.ecfg
+        if m.a <= 0:
+            return ecfg.pack_token_budget, ecfg.max_pack_requests
+        max_step = ecfg.pack_inflation * m.predict(ref_len)
+        floor = _bucket(ref_len, ecfg.suffix_buckets)
+        budget = max([floor] + [s for s in ecfg.suffix_buckets
+                                if m.predict(s) <= max_step])
+        n_max = int(np.clip(budget // max(1, ecfg.suffix_buckets[0]), 1, 64))
+        # gathered prefix tokens are attended, not computed: the hit path
+        # carries a proportionally larger prefix buffer than its budget
+        self.ecfg = dataclasses.replace(ecfg, pack_token_budget=budget,
+                                        max_pack_requests=n_max,
+                                        pack_prefix_budget=max(
+                                            ecfg.pack_prefix_budget,
+                                            2 * budget))
+        return budget, n_max
 
     # ---- request lifecycle ---------------------------------------------------
     def submit(self, tokens: Sequence[int],
@@ -246,59 +300,96 @@ class PrefillOnlyEngine:
             return (self.pending_jct(), self.predict_jct(n_input, chain),
                     self.cache.probe_len(chain))
 
+    def set_degraded(self, flag: bool) -> None:
+        """Brownout level >=2 hook: disable hit co-packing's batched
+        gathered-prefix forward (hits run the solo-suffix path, misses
+        still co-pack). Takes effect at the next batch formation."""
+        with self.lock:
+            self.degraded = bool(flag)
+
     def step(self) -> Optional[int]:
-        """One scheduling step: pick (Algorithm 1), prefill, cache, score.
-        Returns the served request's id."""
+        """One scheduling step: pick (Algorithm 1), form a batch, prefill,
+        cache, score. Returns the anchor request's id."""
         now = time.perf_counter()
         batch = self._form_batch(now)
         if batch is None:
             return None
-        r = batch[0]
-        r.start_time = now
+        for r in batch:
+            r.start_time = now
         with self.lock:
-            self._inflight = [r.req_id]
+            self._inflight = [r.req_id for r in batch]
+            # the shape-priced cost of the formed pack: BatchRecord's
+            # predicted_jct is the number batch formation admitted against
             self._inflight_pred = self._formed_cost
             self._inflight_t0 = now
         self._step_compiled = False
         padded0 = self.padded_slots
-        logits = self._execute(r)
-        # asynchronous launches: sync before timestamping, or the JCT model
-        # observes launch latency instead of compute time
-        self._sync()
-        done = r.finish_time = time.perf_counter()
-        with self.lock:
-            self.results[r.req_id] = self._score(logits, r)
-            # steps that ran a fresh shape (first use, kernel build) are NOT
-            # JCT samples (profile() excludes them the same way)
-            if not self._step_compiled:
-                self.jct_model.observe(r.n_input, r.n_cached_at_start,
-                                       r.finish_time - now)
+        if len(batch) == 1:
+            r = batch[0]
+            logits = self._execute(r)
+            # asynchronous launches: sync before timestamping, or the JCT
+            # model observes launch latency instead of compute time
+            self._sync()
+            done = r.finish_time = time.perf_counter()
+            with self.lock:
+                self.results[r.req_id] = self._score(logits, r)
+                # steps that ran a fresh shape (first use, kernel build) are
+                # NOT JCT samples (profile() excludes them the same way)
+                if not self._step_compiled:
+                    self.jct_model.observe(r.n_input, r.n_cached_at_start,
+                                           r.finish_time - now)
+        else:
+            logits = self._execute_packed(batch)
+            self._sync()
+            done = time.perf_counter()
+            with self.lock:
+                for n, r in enumerate(batch):
+                    r.finish_time = done
+                    self.results[r.req_id] = self._score(logits[n:n + 1], r)
+                # packed cost is a function of COMPUTED tokens (misses all
+                # their tokens, hits their suffixes): the same miss-token
+                # axis Algorithm 1 scores with
+                if not self._step_compiled:
+                    self.jct_model.observe(
+                        sum(r.n_input - r.n_cached_at_start for r in batch),
+                        0, done - now)
+            self.packed_steps += 1
+            self.packed_requests += len(batch)
+            self.packed_hit_requests += sum(
+                1 for r in batch if r.n_cached_at_start > 0)
         self.steps += 1
-        self._last_step_ids = [r.req_id]
-        self._record_step(r, now, done, padded0)
+        self._last_step_ids = [r.req_id for r in batch]
+        self._record_step(batch, now, done, padded0)
         with self.lock:
             self._inflight = []
             self._inflight_pred = 0.0
-        return r.req_id
+        return batch[0].req_id
 
-    def _record_step(self, r: Request, t0: float, t_done: float,
+    def _record_step(self, batch: List[Request], t0: float, t_done: float,
                      padded0: int) -> None:
         """Observability epilogue of step(): BatchRecord into the ring, JCT
         calibration sample (warm steps only)."""
         pred = self._inflight_pred
-        computed = r.n_input - r.n_cached_at_start
+        computed = sum(r.n_input - r.n_cached_at_start for r in batch)
+        kind = ("solo" if len(batch) == 1
+                else "hit" if any(r.n_cached_at_start for r in batch)
+                else "miss")
         path, key = self._last_path
         shape = self._last_shape
         rec = BatchRecord(
-            step=self.steps, ts=t_done, kind="solo", n_requests=1,
-            req_ids=(r.req_id,), computed_tokens=computed,
+            step=self.steps, ts=t_done, kind=kind, n_requests=len(batch),
+            req_ids=tuple(r.req_id for r in batch),
+            computed_tokens=computed,
             padded_tokens=self.padded_slots - padded0,
-            S=shape.get("S", 0), pmax=shape.get("pmax", 0),
-            jit_path=path, jit_key=key, compiled=self._step_compiled,
-            predicted_jct=pred, wall=t_done - t0)
+            S=shape.get("S", 0), Nb=shape.get("Nb", 0),
+            smax=shape.get("smax", 0), pmax=shape.get("pmax", 0),
+            K=shape.get("K", 0), jit_path=path, jit_key=key,
+            compiled=self._step_compiled, predicted_jct=pred,
+            wall=t_done - t0)
         self.batch_records.append(rec)
+        # first-use steps are kept out of calibration, as out of the JCT fit
         if not self._step_compiled:
-            self.jct_monitor.observe(pred, t_done - t0, computed, kind="solo")
+            self.jct_monitor.observe(pred, t_done - t0, computed, kind=kind)
             self.shape_jct.observe(computed, rec.S, rec.Nb, rec.smax,
                                    rec.pmax, rec.wall)
 
@@ -314,29 +405,139 @@ class PrefillOnlyEngine:
             prefix_len = max(0, ((n_input - 1) // (gran * bs)) * gran * bs)
         return prefix_len
 
-    def _solo_cost(self, suffix: int, pref: int) -> float:
-        """Shape-priced wall seconds of one solo step: S = bucketed suffix
-        over an exact prefix buffer (the reference's one-row
-        ``_pack_shape`` / ``_pack_cost``)."""
-        S = _bucket(suffix, self.ecfg.suffix_buckets)
-        return self.shape_jct.predict(suffix, S, 0, 0, pref,
-                                      pad_slots=S - suffix)
+    def _usable_prefix(self, r: Request) -> int:
+        """Bucketed prefix-reuse length for ``r`` against the current cache,
+        probed without touching the LRU (batch formation's pricing)."""
+        return self._usable_prefix_len(r.n_input,
+                                       self.cache.probe_blocks(r.chain))
+
+    def _pack_shape(self, rows: List[Tuple[int, int]]) -> Tuple[
+            int, int, int, int, int]:
+        """Realized step shape ``(S, Nb, smax, pmax, pad_slots)`` for a pack
+        of ``rows`` = [(suffix_tokens, usable_prefix), ...].
+
+        Mirrors ``_execute_packed``'s layout arithmetic, so formation prices
+        the shape execution pays. A single row prices the solo path: S =
+        bucketed suffix, exact prefix buffer (Nb/smax = 0). ``pad_slots``
+        counts the padded-but-dead slots a candidate is charged for:
+        Σ(pmax−pref_i) + Σ(smax−suf_i) over the real rows, bucket slack
+        solo. The pow2 ghost rows (Nb−N) are not charged here (the fitted
+        model prices them from data: Nb is in its feature basis).
+        """
+        ecfg = self.ecfg
+        if len(rows) == 1:
+            suffix, pref = rows[0]
+            S = _bucket(suffix, ecfg.suffix_buckets)
+            return S, 0, 0, pref, S - suffix
+        suffixes = [s for s, _ in rows]
+        total = sum(suffixes)
+        S = _bucket(total, ecfg.suffix_buckets)
+        P_max = max(p for _, p in rows)
+        pmax = _bucket(P_max, ecfg.prefix_buckets) if P_max else 0
+        Nb = 1
+        while Nb < len(rows):
+            Nb *= 2
+        smax = _bucket(max(suffixes), (32, 48) + ecfg.suffix_buckets)
+        if not pmax:
+            # an all-miss pack executes as ONE flat (1, S) sequence: only
+            # the bucket slack is dead
+            return S, Nb, smax, 0, S - total
+        pad = (sum(pmax - p for _, p in rows)
+               + sum(smax - s for s in suffixes))
+        return S, Nb, smax, pmax, pad
+
+    def _pack_cost(self, rows: List[Tuple[int, int]]) -> float:
+        """Predicted wall seconds for one step over ``rows``
+        (``shape_cost_model=False``: the token-linear proxy on bucketed
+        computed tokens)."""
+        computed = sum(s for s, _ in rows)
+        if not self.ecfg.shape_cost_model:
+            return self.jct_model.predict(
+                _bucket(computed, self.ecfg.suffix_buckets))
+        S, Nb, smax, pmax, pad = self._pack_shape(rows)
+        return self.shape_jct.predict(computed, S, Nb, smax, pmax,
+                                      pad_slots=pad)
 
     def _form_batch(self, now: float) -> Optional[List[Request]]:
-        """Algorithm 1 pick: the scheduler's choice runs alone."""
+        """Algorithm 1 pick + marginal-cost backfill (shape-priced).
+
+        The anchor is exactly the scheduler's pick, so SRJF-calibrated order
+        is preserved. Backfill grows the pack greedily: every queued
+        candidate is priced by its marginal batch cost ``cost(pack + r) −
+        cost(pack)`` against its solo cost, and ``pick_backfill`` admits
+        the candidate with the largest benefit ``solo(r) − marginal(r)``.
+        Misses contribute their full length, hits only their suffix. When
+        the best remaining candidate's benefit is negative the pack closes
+        (skew split, ``pack_skew_splits``).
+
+        Hard gates: computed tokens <= ``pack_token_budget``; gathered
+        prefix tokens <= ``pack_prefix_budget``; brownout skips hit
+        gathers. Requests sharing a prefix root (first hash-chain block)
+        co-pack only when both already hit the cache; a miss sharing a root
+        runs sequentially, so the later request hits the earlier one's
+        freshly inserted KV.
+        """
         with self.lock:
             i = self.scheduler.pick(self.queue, self.cache, now)
             if i is None:
                 return None
-            r = self.queue.pop(i)
-            pref = self._usable_prefix_len(r.n_input,
-                                           self.cache.probe_blocks(r.chain))
-            self._formed_cost = self._solo_cost(r.n_input - pref, pref)
-            return [r]
+            anchor = self.queue.pop(i)
+            batch = [anchor]
+            ecfg = self.ecfg
+            pref_a = self._usable_prefix(anchor)
+            rows = [(anchor.n_input - pref_a, pref_a)]
+            if (ecfg.max_pack_requests <= 1 or ecfg.pack_token_budget <= 0
+                    or not self.queue or (self.degraded and pref_a)):
+                self._formed_cost = self._pack_cost(rows)
+                return batch
+            total = rows[0][0]                     # computed suffix tokens
+            pref_total = pref_a
+            hit_roots = ({anchor.chain[0]: pref_a > 0} if anchor.chain
+                         else {})
+            cands = [(r, self._usable_prefix(r)) for r in self.queue]
+            pack_cost = self._pack_cost(rows)
+
+            def benefit(r: Request, pref: int) -> Optional[float]:
+                if self.degraded and pref:
+                    return None    # brownout: no batched hit gather
+                suffix = r.n_input - pref
+                if total + suffix > ecfg.pack_token_budget:
+                    return None
+                if pref and pref_total + pref > ecfg.pack_prefix_budget:
+                    return None
+                root = r.chain[0] if r.chain else None
+                if root is not None and root in hit_roots and not (
+                        hit_roots[root] and pref > 0):
+                    return None
+                marginal = self._pack_cost(rows + [(suffix, pref)]) - pack_cost
+                return self._pack_cost([(suffix, pref)]) - marginal
+
+            while len(batch) < ecfg.max_pack_requests and cands:
+                j = self.scheduler.pick_backfill(cands, benefit)
+                if j is None:
+                    break
+                r, pref = cands[j]
+                if benefit(r, pref) < 0:
+                    self.pack_skew_splits += 1
+                    break
+                cands.pop(j)
+                batch.append(r)
+                rows.append((r.n_input - pref, pref))
+                total += r.n_input - pref
+                pref_total += pref
+                pack_cost = self._pack_cost(rows)
+                root = r.chain[0] if r.chain else None
+                if root is not None:
+                    hit_roots.setdefault(root, pref > 0)
+            self._formed_cost = pack_cost
+            for r in batch[1:]:
+                self.queue.remove(r)
+            return batch
 
     def run_until_drained(self) -> List[int]:
-        """Serve until the queue is empty; returns the served ids in
-        completion order."""
+        """Serve until the queue is empty; returns one id per served request
+        in completion order (a packed step contributes its whole batch,
+        anchor first)."""
         done = []
         while self.queue:
             if self.step() is not None:
@@ -393,6 +594,143 @@ class PrefillOnlyEngine:
                                   now=time.perf_counter(),
                                   payloads=payloads_all)
         return logits
+
+    def _execute_packed(self, batch: List[Request]) -> torch.Tensor:
+        """Run N requests (cache hits AND misses) as one prepacked forward;
+        returns (N, V) logits, one row per request.
+
+        Hit segments pack only their SUFFIX tokens; their cached prefix KV
+        is assembled into a per-row prefix buffer that the positioned
+        attention reads (``tfm.prefill_packed_with_prefix``). All-miss
+        batches take ``tfm.prefill_packed``. Suffix discard is per segment:
+        the forward gathers each request's keep window via ``kv_indices``
+        (K kept tokens, the solo path's bound), and each window is inserted
+        under the request's own chain.
+        """
+        bs = self.ecfg.block_size
+        # cache probe + pin under the lock; the forward runs outside it
+        prefs: List[Tuple[int, List, int]] = []
+        with self.lock:
+            for r in batch:
+                matched = self.cache.match_blocks(r.chain, touch=True)
+                plen = self._usable_prefix_len(r.n_input, matched)
+                r.n_cached_at_start = plen
+                payloads = []
+                if plen:
+                    self.cache.pin(r.chain, plen // bs)
+                    payloads = self.cache.match_payloads(
+                        r.chain)[:plen // bs]
+                prefs.append((plen, payloads, matched))
+                self.hit_tokens += plen
+                self.total_tokens += r.n_input
+        suffixes = [r.n_input - p for r, (p, _, _) in zip(batch, prefs)]
+        # realized step shape: the SAME arithmetic formation priced with
+        S, Nb, smax, pmax, _ = self._pack_shape(
+            [(r.n_input - p, p) for r, (p, _, _) in zip(batch, prefs)])
+        # block-aligned NEW keep per request; a chain already resident past
+        # its keep bound needs no fresh KV at all
+        keeps = [self.kv.keep_new(r.n_input, p, matched)
+                 for r, (p, _, matched) in zip(batch, prefs)]
+        # gather length padded to a bucket (bounded shape keys); on the hit
+        # path tied to S outright (sum(keeps) <= packed suffix tokens)
+        if not sum(keeps):
+            K = 0
+        elif pmax:
+            K = S
+        else:
+            K = _bucket(sum(keeps), self.ecfg.suffix_buckets)
+        plens = [p for p, _, _ in prefs]
+        lay = tfm.packed_layout(plens, suffixes, S, rows=Nb, smax=smax,
+                                pmax=pmax)
+        toks = np.zeros((1, S), np.int64)
+        kv_idx = np.zeros((K,), np.int64)
+        off = cum = 0
+        for n, r in enumerate(batch):
+            toks[0, off:off + suffixes[n]] = r.tokens[plens[n]:]
+            kv_idx[cum:cum + keeps[n]] = off + np.arange(keeps[n])
+            off += suffixes[n]
+            cum += keeps[n]
+        # paid forward slots: the flat packed sequence S plus, on the hit
+        # path, the reference's padded batched area — Nb*pmax prefix slots
+        # and the row slack Nb*smax − S — so padded_slots and BatchRecord
+        # report the reference's numbers (the port's flat layout leaves the
+        # ghost rows out of the buffer)
+        self.padded_slots += S + Nb * pmax + (
+            max(0, Nb * smax - S) if pmax else 0)
+        self._last_shape = {"S": S, "Nb": Nb if pmax else 0, "smax": smax,
+                            "pmax": pmax, "K": K}
+        lay = {k: t.to(self.device) for k, t in lay.items()}
+        toks = torch.from_numpy(toks).to(self.device)
+        kv_idx = torch.from_numpy(kv_idx).to(self.device)
+        if pmax:
+            logits, kv = self._run_packed_hit(
+                S, Nb, smax, pmax, K, toks, lay, kv_idx,
+                [(p, pl) for p, pl, _ in prefs])
+        else:
+            logits, kv = self._run_packed_miss(S, K, toks, lay, kv_idx)
+        now = time.perf_counter()
+        cum = 0
+        with self.lock:
+            for n, r in enumerate(batch):
+                plen = prefs[n][0]
+                if plen:
+                    self.cache.unpin(r.chain, plen // bs)
+                # keeps[n] == 0: nothing insertable (or already resident)
+                if kv is not None and keeps[n]:
+                    payloads_all = (self.cache.match_payloads(
+                        r.chain)[:plen // bs] if plen else [])
+                    # each block its own copy: an evicted block frees its
+                    # memory rather than pinning the whole gathered KV
+                    for b in range(keeps[n] // bs):
+                        lo = cum + b * bs
+                        payloads_all.append(
+                            (kv["k"][:, :, lo:lo + bs].clone(),
+                             kv["v"][:, :, lo:lo + bs].clone()))
+                    self.cache.insert(r.chain, plen + keeps[n], now=now,
+                                      payloads=payloads_all)
+                cum += keeps[n]
+        return logits
+
+    def _run_packed_miss(self, S: int, K: int, toks, lay, kv_idx):
+        key = (S, K)
+        self._last_path = ("packed_miss", key)
+        if key not in self._packed_keys:
+            self._step_compiled = True
+            self._packed_keys.add(key)
+        self.forwards += 1
+        return tfm.prefill_packed(self.params, self.cfg, toks,
+                                  lay["seg_ids"], lay["positions"],
+                                  lay["last_indices"],
+                                  kv_indices=kv_idx if K else None)
+
+    def _run_packed_hit(self, S: int, Nb: int, smax: int, pmax: int, K: int,
+                        toks, lay, kv_idx, rows):
+        """Packed prefix-hit forward: assemble the pinned per-block prefix
+        payloads into a (L, N, pmax, KV, hd) buffer (row n = segment n's
+        prefix, zero-padded; the ghost rows Nb − N are left out) and run
+        ``prefill_packed_with_prefix``."""
+        key = (S, Nb, smax, pmax, K)
+        self._last_path = ("packed_hit", key)
+        if key not in self._packed_hit_keys:
+            self._step_compiled = True
+            self._packed_hit_keys.add(key)
+        cfg = self.cfg
+        shape = (cfg.num_layers, len(rows), pmax, cfg.num_kv_heads,
+                 cfg.head_dim)
+        dtype = torch_dtype(cfg.dtype)
+        pk = torch.zeros(shape, dtype=dtype, device=self.device)
+        pv = torch.zeros(shape, dtype=dtype, device=self.device)
+        for n, (plen, parts) in enumerate(rows):
+            if parts:
+                pk[:, n:n + 1, :plen].copy_(
+                    torch.cat([p[0] for p in parts], dim=2))
+                pv[:, n:n + 1, :plen].copy_(
+                    torch.cat([p[1] for p in parts], dim=2))
+        self.forwards += 1
+        return tfm.prefill_packed_with_prefix(
+            self.params, cfg, toks, lay["positions"], lay["last_indices"],
+            {"k": pk, "v": pv}, lay["prefix_pos"], lay["seg_qidx"],
+            kv_indices=kv_idx if K else None)
 
     def _tokens(self, tokens: Sequence[int], S: int):
         toks = torch.zeros((1, S), dtype=torch.long)
@@ -481,6 +819,10 @@ class PrefillOnlyEngine:
             "steps": self.steps,
             "forwards": self.forwards,
             "hit_rate": self.hit_tokens / max(1, self.total_tokens),
+            "packed_steps": self.packed_steps,
+            "packed_requests": self.packed_requests,
+            "packed_hit_requests": self.packed_hit_requests,
+            "pack_skew_splits": self.pack_skew_splits,
             "nonfinite_results": self.nonfinite_results,
             # fraction of paid forward slots that were padding/cache slack
             "padding_waste": 1.0 - (self.total_tokens

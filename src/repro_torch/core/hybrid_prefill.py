@@ -1,7 +1,7 @@
 """Hybrid prefilling (paper §4) — chunk non-attention layers, not attention.
 
-Port of ``repro.core.hybrid_prefill``'s ``chunked_map`` and
-``last_token_logits``. Chunking only the token-wise (linear) layers bounds
+Port of ``repro.core.hybrid_prefill``'s ``chunked_map``,
+``last_token_logits`` and ``packed_last_logits``. Chunking only the token-wise (linear) layers bounds
 their intermediates at ``(chunk, d_ff)`` while attention still sees the
 whole sequence, so a request finishes in ONE forward pass (the property
 that makes suffix-KV discard possible).
@@ -45,6 +45,35 @@ def chunked_map(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
     return out
 
 
+def _head_logits(last: torch.Tensor, w_head: torch.Tensor,
+                 final_softcap: float) -> torch.Tensor:
+    """(N, D) rows -> (N, V) f32 logits; the f32 upcast of the head weight
+    is made ``HEAD_CHUNK`` vocab columns at a time."""
+    last = last.float()
+    V = w_head.shape[1]
+    logits = torch.empty((last.shape[0], V), dtype=torch.float32,
+                         device=last.device)
+    for lo in range(0, V, HEAD_CHUNK):
+        hi = min(V, lo + HEAD_CHUNK)
+        logits[:, lo:hi] = last @ w_head[:, lo:hi].float()
+    if final_softcap:
+        logits = final_softcap * torch.tanh(logits / final_softcap)
+    return logits
+
+
+def packed_last_logits(hidden: torch.Tensor, w_head: torch.Tensor,
+                       last_indices: torch.Tensor,
+                       final_softcap: float = 0.0) -> torch.Tensor:
+    """Prefill-only LM head for a PREPACKED batch: one f32 logits row per
+    packed segment. ``last_indices`` (N,) are flat indices into the
+    flattened (B*S,) token axis — for the engine's B == 1 layout, each
+    segment's last packed position. Projects only N rows."""
+    B, S, D = hidden.shape
+    last = hidden.reshape(B * S, D).index_select(
+        0, last_indices.to(torch.long))
+    return _head_logits(last, w_head, final_softcap)
+
+
 def last_token_logits(hidden: torch.Tensor, w_head: torch.Tensor,
                       last_index: Optional[torch.Tensor] = None,
                       final_softcap: float = 0.0) -> torch.Tensor:
@@ -60,12 +89,4 @@ def last_token_logits(hidden: torch.Tensor, w_head: torch.Tensor,
     else:
         idx = last_index.reshape(B, 1, 1).to(torch.long).expand(B, 1, D)
         last = torch.gather(hidden, 1, idx)[:, 0, :]
-    last = last.float()
-    V = w_head.shape[1]
-    logits = torch.empty((B, V), dtype=torch.float32, device=hidden.device)
-    for lo in range(0, V, HEAD_CHUNK):
-        hi = min(V, lo + HEAD_CHUNK)
-        logits[:, lo:hi] = last @ w_head[:, lo:hi].float()
-    if final_softcap:
-        logits = final_softcap * torch.tanh(logits / final_softcap)
-    return logits
+    return _head_logits(last, w_head, final_softcap)

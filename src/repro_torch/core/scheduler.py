@@ -1,6 +1,5 @@
 """Request scheduling — paper §6, Algorithm 1 (copy of
-``repro.core.scheduler``; backfill for packed batches comes with the packed
-slice).
+``repro.core.scheduler``).
 
 Policies:
   fifo             first-come-first-serve (PagedAttention baseline)
@@ -107,4 +106,29 @@ class Scheduler:
             key = (self.score(r, cache, now), r.arrival, r.req_id)
             if best_score is None or key < best_score:   # deterministic ties
                 best_score, best_i = key, i
+        return best_i
+
+    def pick_backfill(self, cands: Sequence[Tuple[Request, int]],
+                      benefit) -> Optional[int]:
+        """Returns the index into ``cands`` of the best backfill admit.
+
+        ``cands`` is the engine's (request, usable_prefix) candidate list;
+        ``benefit(request, prefix) -> Optional[float]`` prices one candidate:
+        None marks it hard-ineligible this round (budget/sharer/brownout
+        gates), otherwise the co-packing benefit ``solo_cost − marginal_cost``
+        in JCT-seconds. The pick is the eligible candidate with the largest
+        benefit (ties broken by arrival then req_id — FIFO among equals), or
+        None when no candidate is eligible. Callers admit the pick only when
+        its benefit is non-negative; a negative best benefit means every
+        remaining candidate's padding externality exceeds its co-packing
+        gain, i.e. the pack should close (skew split).
+        """
+        best_i, best_key = None, None
+        for i, (r, pref) in enumerate(cands):
+            gain = benefit(r, pref)
+            if gain is None:
+                continue
+            key = (-gain, r.arrival, r.req_id)
+            if best_key is None or key < best_key:
+                best_key, best_i = key, i
         return best_i

@@ -3,7 +3,8 @@ version and with a launch counter:
 
   rmsnorm          csrc/rmsnorm.cu          <- repro/kernels/rmsnorm.py
   flash_attention  csrc/flash_attention.cu  <- repro/kernels/flash_attention.py
-                                               (dense mode + q_offset)
+                                               (dense mode + q_offset,
+                                               segmented, positioned)
   fused_mlp        csrc/fused_mlp.cu        <- repro/kernels/fused_mlp.py
 
 Sources are built on first use (``_build``); nothing is built or loaded at

@@ -1,31 +1,58 @@
-// Blocked causal flash attention for Hopper (dense mode + query offset).
+// Blocked causal flash attention for Hopper: dense, segmented and
+// positioned modes, with a query offset in the dense mode.
 //
-// Replaces the dense mode of the Pallas kernel
-// repro/kernels/flash_attention.py::flash_attention (neither segmented nor
-// positioned), extended with q_offset: query row i sits at absolute position
-// q_offset + i (bottom-right causal alignment of Sq suffix queries over
-// Sk = q_offset + Sq keys, the prefix-cache-hit forward).
+// Replaces the Pallas kernel repro/kernels/flash_attention.py::
+// flash_attention in its three modes:
+//   dense       neither seg_* nor pos_*; extended with q_offset: query row i
+//               sits at absolute position q_offset + i (bottom-right causal
+//               alignment of Sq suffix queries over Sk = q_offset + Sq keys,
+//               the prefix-cache-hit forward);
+//   segmented   seg_q/seg_k (B, Sq)/(B, Sk) int32 segment ids (the packed
+//               miss): attention only where seg_q == seg_k and seg_k >= 0;
+//               the causal and window masks keep the structural packed
+//               indices (valid because segments are contiguous);
+//   positioned  seg_* plus pos_q/pos_k per-token absolute positions (the
+//               packed hit, keys = concat(gathered prefix KV, fresh KV)):
+//               the causal and window masks use the positions.
 //
 // Semantics (same as the plain version in kernels/flash_attention.py):
 //   s = (q * scale) . k, softcap * tanh(s / softcap) when softcap > 0;
 //   key j is live for query i iff j < min(Sk, kv_valid), and, when causal,
-//   q_offset + i >= j, and, when window > 0, q_offset + i - j < window;
-//   online softmax over live keys only, out = acc / max(l, 1e-30) (a row
-//   with no live key gives 0). GQA: query head h reads kv head h / (H / KV).
+//   qpos(i) >= kpos(j), and, when window > 0, qpos(i) - kpos(j) < window,
+//   and, when segmented, seg_q(i) == seg_k(j) >= 0; online softmax over live
+//   keys only, out = acc / max(l, 1e-30) (a row with no live key gives 0).
+//   GQA: query head h reads kv head h / (H / KV).
 //
 // Design: the Pallas grid's sequential kv axis becomes a loop inside the
 // block. A block owns BQ = 32 query rows of one (batch, head), one thread
-// per row, with the f32 query row and (BQ, d) accumulator in registers and
-// the running max / sum per thread. K/V tiles of BK = 32 rows are staged in
-// shared memory as f32 and read as broadcasts. The loop visits only the
-// block's live key range (causal end, window start, kv_valid), so wholly
-// masked tiles are never loaded. Masked scores use a finite NEG_INF and
-// contribute p = 0 explicitly, so fully masked rows never produce NaN.
+// per row (one warp), with the f32 query row and (BQ, d) accumulator in
+// registers and the running max / sum per thread. K/V tiles of BK = 32
+// rows are staged in shared memory as f32 and read as broadcasts.
+// Whole-tile skip, as the Pallas kernel's pl.when range tests:
+//   - dense/segmented: the loop covers only the block's structural live
+//     key range (causal end, window start, kv_valid);
+//   - every tile first loads its BK segment ids / positions (one per lane)
+//     and reduces their min / max with warp intrinsics; a tile runs only if
+//     its segment-id range meets the query block's, it holds a seg_k >= 0,
+//     and (positioned) min(pos_k) <= max(pos_q) under causal and
+//     max(pos_k) >= min(pos_q) - window + 1 under a window.
+//   Ranges are taken over real tokens only (seg >= 0): a padding query
+//   attends nothing, so it does not widen its block's range. (The Pallas
+//   kernel counts padding rows, so the query block that holds the end of
+//   the last segment and the padding tail runs every tile of the causal
+//   range; here it runs only its own segments' tiles.)
+// A skipped tile loads no K/V. Tiles are BK-aligned, so an optional
+// (B, nq, nk) int map records the executed tiles (head 0 writes it), the
+// counterpart of the Pallas debug_tile_map. Masked scores use a finite
+// NEG_INF and contribute p = 0 explicitly, so fully masked rows (padding
+// queries) return 0 and never NaN.
 //
-// What bounds it on the H100: at the main path's shapes (d = 64, S <= 2K)
-// the bound is bytes (q, k, v read once, out written once), but this first
-// kernel computes with f32 FMAs on the CUDA cores, not on the tensor cores,
-// so it is far from that bound; mma/wgmma tiles are the next step.
+// What bounds it on the H100: at the main path's shapes (d = 64, S <= 2K,
+// Sk <= ~5K) the bound is bytes (q, k, v read once, out written once), but
+// this first kernel computes with f32 FMAs on the CUDA cores, not on the
+// tensor cores, so it is far from that bound; mma/wgmma tiles are the next
+// step.
+#include <limits.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -36,12 +63,19 @@ namespace {
 constexpr int BQ = 32;
 constexpr int BK = 32;
 constexpr float NEG_INF = -1e30f;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  // per-token int32 arrays, contiguous (B, Sq) / (B, Sk), or null
+  const int* seg_q;
+  const int* seg_k;
+  const int* pos_q;
+  const int* pos_k;
+  int* tile_map;  // (B, nq, nk) int32, zeroed by the caller, or null
   // element strides: batch, token, head (the head dim is contiguous)
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
@@ -53,16 +87,21 @@ struct Params {
 template <typename T, int D>
 __global__ void __launch_bounds__(BQ) flash_fwd_kernel(const Params p) {
   static_assert(D % 4 == 0, "head_dim must be a multiple of 4");
+  static_assert(BQ == 32 && BK == 32, "one warp per block, one key per lane");
   __shared__ __align__(16) float Ks[BK][D];
   __shared__ __align__(16) float Vs[BK][D];
+  __shared__ int seg_ks[BK];
+  __shared__ int pos_ks[BK];
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int kh = h / (p.H / p.KV);
+  const int lane = threadIdx.x;
   const int row0 = blockIdx.x * BQ;
-  const int row = row0 + threadIdx.x;
+  const int row = row0 + lane;
   const bool row_ok = row < p.Sq;
-  const int qpos = p.q_offset + row;
+  const bool segmented = p.seg_q != nullptr;
+  const bool positioned = p.pos_q != nullptr;
 
   const T* Q = static_cast<const T*>(p.q);
   const T* K = static_cast<const T*>(p.k);
@@ -82,19 +121,63 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(const Params p) {
   float m = NEG_INF;
   float l = 0.f;
 
-  // live key range of the whole block (whole-tile skip)
+  // this row's segment id and absolute position, and the block's ranges
+  // over its real rows (the tile tests)
+  int seg_self = -1;
+  int qpos = p.q_offset + row;
+  if (segmented && row_ok) seg_self = p.seg_q[(long long)b * p.Sq + row];
+  if (positioned && row_ok) qpos = p.pos_q[(long long)b * p.Sq + row];
+  const bool q_real = row_ok && (!segmented || seg_self >= 0);
+  const int q_smin = __reduce_min_sync(FULL, q_real ? seg_self : INT_MAX);
+  const int q_smax = __reduce_max_sync(FULL, q_real ? seg_self : INT_MIN);
+  const int q_pmin = __reduce_min_sync(FULL, q_real ? qpos : INT_MAX);
+  const int q_pmax = __reduce_max_sync(FULL, q_real ? qpos : INT_MIN);
+
+  // structural live key range of the whole block (the positioned mode has
+  // no structural order: its causal/window skips are the position tests)
   const int n_valid = min(p.Sk, p.kv_valid);
   const int last_row = min(row0 + BQ, p.Sq) - 1;
   int kv_end = n_valid;
-  if (p.causal) kv_end = min(kv_end, p.q_offset + last_row + 1);
   int kv_begin = 0;
-  if (p.window > 0) kv_begin = max(0, p.q_offset + row0 - p.window + 1);
+  if (!positioned) {
+    if (p.causal) kv_end = min(kv_end, p.q_offset + last_row + 1);
+    if (p.window > 0) kv_begin = max(0, p.q_offset + row0 - p.window + 1);
+  }
+  kv_begin = (kv_begin / BK) * BK;  // BK-aligned tiles
+  const int nk = (p.Sk + BK - 1) / BK;
+  int* tmap = (p.tile_map != nullptr && h == 0 && lane == 0)
+                  ? p.tile_map + ((long long)b * gridDim.x + blockIdx.x) * nk
+                  : nullptr;
 
   const long long k_base = b * p.k_sb + kh * p.k_sh;
   const long long v_base = b * p.v_sb + kh * p.v_sh;
   for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
     __syncthreads();  // the previous tile is consumed
-    for (int e = threadIdx.x; e < BK * D; e += BQ) {
+    const int key = k0 + lane;
+    const bool key_ok = key < n_valid;  // the tile's real keys
+    int seg_k = -1;
+    int kpos = key;
+    if (segmented && key_ok) seg_k = p.seg_k[(long long)b * p.Sk + key];
+    if (positioned && key_ok) kpos = p.pos_k[(long long)b * p.Sk + key];
+    const bool k_real = key_ok && (!segmented || seg_k >= 0);
+    bool run = true;
+    if (segmented) {
+      const int k_smin = __reduce_min_sync(FULL, k_real ? seg_k : INT_MAX);
+      const int k_smax = __reduce_max_sync(FULL, k_real ? seg_k : INT_MIN);
+      run = q_smin <= k_smax && q_smax >= k_smin && k_smax >= 0;
+    }
+    if (positioned) {
+      const int k_pmin = __reduce_min_sync(FULL, k_real ? kpos : INT_MAX);
+      const int k_pmax = __reduce_max_sync(FULL, k_real ? kpos : INT_MIN);
+      if (p.causal) run = run && k_pmin <= q_pmax;
+      if (p.window > 0)
+        run = run && (long long)k_pmax >= (long long)q_pmin - p.window + 1;
+    }
+    if (tmap != nullptr) tmap[k0 / BK] = run ? 1 : 0;
+    if (!run) continue;  // warp-uniform: no K/V load, no compute
+    seg_ks[lane] = seg_k;
+    pos_ks[lane] = kpos;
+    for (int e = lane; e < BK * D; e += BQ) {
       const int r = e / D;
       const int c = e - r * D;
       const int kr = k0 + r;
@@ -113,7 +196,6 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(const Params p) {
     float tile_max = NEG_INF;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
-      const int kpos = k0 + j;
       float dot = 0.f;
       const float4* kr4 = reinterpret_cast<const float4*>(Ks[j]);
 #pragma unroll
@@ -125,9 +207,11 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(const Params p) {
         dot = fmaf(q[4 * c4 + 3], kk.w, dot);
       }
       if (p.softcap > 0.f) dot = p.softcap * tanhf(dot / p.softcap);
-      bool ok = row_ok && kpos < kv_end;
-      if (p.causal) ok = ok && qpos >= kpos;
-      if (p.window > 0) ok = ok && (qpos - kpos) < p.window;
+      const int kp = pos_ks[j];
+      bool ok = row_ok && k0 + j < kv_end;
+      if (p.causal) ok = ok && qpos >= kp;
+      if (p.window > 0) ok = ok && (long long)qpos - kp < p.window;
+      if (segmented) ok = ok && seg_ks[j] == seg_self && seg_ks[j] >= 0;
       s[j] = ok ? dot : NEG_INF;
       if (ok) {
         live |= (1u << j);
@@ -189,21 +273,35 @@ int launch(const Params& p, int B, int D, cudaStream_t s) {
 
 // q: (B, Sq, H, D), k/v: (B, Sk, KV, D), out: (B, Sq, H, D), each with a
 // contiguous head dim; strides[12] are the element strides (batch, token,
-// head) of q, k, v, out in that order. Returns a cudaError_t code.
+// head) of q, k, v, out in that order. seg_q/pos_q (B, Sq), seg_k/pos_k
+// (B, Sk) contiguous int32 or null (pos_* only with seg_*); tile_map a
+// zeroed (B, ceil(Sq/32), ceil(Sk/32)) int32 buffer or null. Returns a
+// cudaError_t code.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, const long long* strides, int B,
-                                   int Sq, int Sk, int H, int KV, int D,
-                                   int causal, int window, int q_offset,
-                                   int kv_valid, float scale, float softcap,
-                                   int dtype, void* stream) {
+                                   void* o, const long long* strides,
+                                   const int* seg_q, const int* seg_k,
+                                   const int* pos_q, const int* pos_k,
+                                   int* tile_map, int B, int Sq, int Sk, int H,
+                                   int KV, int D, int causal, int window,
+                                   int q_offset, int kv_valid, float scale,
+                                   float softcap, int dtype, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if ((seg_q == nullptr) != (seg_k == nullptr) ||
+      (pos_q == nullptr) != (pos_k == nullptr) ||
+      (pos_q != nullptr && seg_q == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = o;
+  p.seg_q = seg_q;
+  p.seg_k = seg_k;
+  p.pos_q = pos_q;
+  p.pos_k = pos_k;
+  p.tile_map = tile_map;
   p.q_sb = strides[0];
   p.q_ss = strides[1];
   p.q_sh = strides[2];

@@ -1,8 +1,8 @@
 """Layer library, dense subset: RMSNorm, RoPE, attention, SwiGLU, embedding.
 
 Port of ``repro.models.layers`` (``rms_norm``, ``rope_apply``,
-``_qkv_project``, the non-mesh non-segmented branch of
-``attention_prefill``, ``mlp_apply``, ``embed_apply``). Parameters are plain
+``_qkv_project``, the non-mesh branches of ``attention_prefill``, dense and
+segmented, ``mlp_apply``, ``embed_apply``). Parameters are plain
 dicts of tensors, activations run in the config's dtype, softmax/norm
 internals in f32. RMSNorm, attention and the MLP go through the kernel
 wrappers of ``repro_torch.kernels``: hand-written Hopper kernels on CUDA
@@ -11,7 +11,7 @@ under hybrid prefilling (``core.hybrid_prefill.chunked_map``).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -22,8 +22,8 @@ from repro_torch.kernels import fused_mlp as _mlp
 from repro_torch.kernels import rmsnorm as _rms
 
 NEG_INF = -1e30
-# padding-kv position sentinel (the reference's PAD_POS; used by the
-# positioned attention mode of the packed-hit slice)
+# padding-kv position sentinel (the reference's PAD_POS): huge, so the
+# positioned attention's causal mask kills padded prefix slots
 PAD_POS = 1 << 30
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -88,22 +88,34 @@ def _qkv_project(p: Dict, x: torch.Tensor, cfg: ModelConfig,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0, softcap: float = 0.0,
-              q_offset: int = 0) -> torch.Tensor:
+              q_offset: int = 0, seg_q: Optional[torch.Tensor] = None,
+              seg_k: Optional[torch.Tensor] = None,
+              pos_q: Optional[torch.Tensor] = None,
+              pos_k: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, Sq, H, d), k/v: (B, Sk, KV, d) -> (B, Sq, H, d); query i sits
-    at position ``q_offset + i`` (the reference's ``blocked_attention``)."""
+    at position ``q_offset + i`` (the reference's ``blocked_attention``),
+    restricted to same-segment pairs by ``seg_*`` and masked by per-token
+    positions ``pos_*`` when given."""
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               softcap=softcap, q_offset=q_offset)
+                               softcap=softcap, q_offset=q_offset,
+                               seg_q=seg_q, seg_k=seg_k, pos_q=pos_q,
+                               pos_k=pos_k)
 
 
 def attention_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                       positions: torch.Tensor, window: int = 0,
-                      chunk: int = 0
+                      chunk: int = 0, seg_ids: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence causal attention. Returns (out, k, v) — the caller
-    decides how much of (k, v) to keep (suffix KV discard happens there)."""
+    decides how much of (k, v) to keep (suffix KV discard happens there).
+
+    ``seg_ids`` (B, S) selects the prepacked path: the kernel's segmented
+    mode restricts attention to same-segment pairs and skips
+    cross-segment tiles."""
     B, S, D = x.shape
     q, k, v = _qkv_project(p, x, cfg, positions, chunk)
-    out = attention(q, k, v, window=window, softcap=cfg.attn_softcap)
+    out = attention(q, k, v, window=window, softcap=cfg.attn_softcap,
+                    seg_q=seg_ids, seg_k=seg_ids)
     out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
     out = chunked_map(lambda oc: oc @ p["wo"], out, chunk)
     return out, k, v

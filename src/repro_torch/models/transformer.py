@@ -1,22 +1,27 @@
 """Decoder-only transformer, dense family: the PrefillOnly serving forwards.
 
 Port of ``repro.models.transformer``'s ``head_weight``, ``forward_full``
-(dense configs, with ``kv_keep``), ``prefill`` and ``prefill_with_prefix``.
+(dense configs, with ``kv_keep``, ``positions``, ``seg_ids`` and
+``kv_indices``), ``prefill``, ``prefill_packed``, ``prefill_with_prefix``
+and ``prefill_packed_with_prefix``.
 Parameters keep the reference's stacked tree (``blocks/*`` with a leading
 layer axis, ``embed/tok``, ``final_norm``; see ``models/params.py``), and
 the layer scan becomes a Python loop over layers. The local_global (gemma2)
 and fp8-weight branches come with later slices.
 
-KV payloads keep the reference layout: (L, B, keep, KV, hd).
+KV payloads keep the reference layout: (L, B, keep, KV, hd). The packed
+forwards return per-segment logits and the fresh KV gathered at
+``kv_indices`` (L, 1, K, KV, hd).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.hybrid_prefill import last_token_logits
+from repro_torch.core.hybrid_prefill import (chunked_map, last_token_logits,
+                                             packed_last_logits)
 from repro_torch.models import layers as L
 
 
@@ -41,17 +46,30 @@ def layer_params(blocks: Dict, layer: int) -> Dict:
 
 
 def _block_full(bp: Dict, x: torch.Tensor, cfg: ModelConfig, *,
-                positions: torch.Tensor, window: int, chunk: int):
+                positions: torch.Tensor, window: int, chunk: int,
+                seg_ids: Optional[torch.Tensor] = None):
     h = L.rms_norm(x, bp["ln1"])
     attn, k, v = L.attention_prefill(bp["attn"], h, cfg, positions=positions,
-                                     window=window, chunk=chunk)
+                                     window=window, chunk=chunk,
+                                     seg_ids=seg_ids)
     x = x + attn
     h = L.rms_norm(x, bp["ln2"])
     return x + L.mlp_apply(bp["mlp"], h, chunk=chunk), (k, v)
 
 
+def _kv_out(cfg: ModelConfig, B: int, keep: int, dtype, device) -> Dict:
+    """Preallocated (L, B, keep, KV, hd) KV output (layer-wise discard:
+    each layer copies only its kept tokens in)."""
+    shape = (cfg.num_layers, B, keep, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.empty(shape, dtype=dtype, device=device),
+            "v": torch.empty(shape, dtype=dtype, device=device)}
+
+
 def forward_full(params: Dict, cfg: ModelConfig, *,
-                 tokens: torch.Tensor, kv_keep: int = 0
+                 tokens: torch.Tensor, kv_keep: int = 0,
+                 positions: Optional[torch.Tensor] = None,
+                 seg_ids: Optional[torch.Tensor] = None,
+                 kv_indices: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (final-normed hidden (B, S, D), kv dict or None).
 
@@ -60,25 +78,39 @@ def forward_full(params: Dict, cfg: ModelConfig, *,
     layer's full-length K/V is dropped once its attention is done, and only
     its keep slice is copied into the preallocated (L, B, keep, KV, hd)
     output).
+
+    Prepacked prefill: ``positions`` (B, S) overrides the default arange —
+    packed batches restart RoPE positions at every segment boundary — and
+    ``seg_ids`` (B, S) restricts attention to same-segment pairs.
+    ``kv_indices`` (K,) replaces the prefix budget: each layer's kept KV is
+    the gather of those token positions, so per-segment keep windows
+    scattered through the packed sequence cost K tokens, not S.
     """
     _check_dense(cfg)
     dtype = L.torch_dtype(cfg.dtype)
     x = L.embed_apply(params["embed"], tokens, dtype)
     B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
     chunk = cfg.hybrid_chunk
-    keep = min(kv_keep, S)
-    kv = None
-    if keep > 0:
-        shape = (cfg.num_layers, B, keep, cfg.num_kv_heads, cfg.head_dim)
-        kv = {"k": torch.empty(shape, dtype=dtype, device=x.device),
-              "v": torch.empty(shape, dtype=dtype, device=x.device)}
+    if kv_indices is not None:
+        kv_indices = kv_indices.to(device=x.device, dtype=torch.long)
+        keep = kv_indices.shape[0]
+    else:
+        keep = min(kv_keep, S)
+    kv = _kv_out(cfg, B, keep, dtype, x.device) if keep > 0 else None
     for layer in range(cfg.num_layers):
         bp = layer_params(params["blocks"], layer)
         x, (k, v) = _block_full(bp, x, cfg, positions=positions,
-                                window=cfg.sliding_window, chunk=chunk)
-        if kv is not None:
+                                window=cfg.sliding_window, chunk=chunk,
+                                seg_ids=seg_ids)
+        if kv is None:
+            continue
+        if kv_indices is not None:
+            kv["k"][layer].copy_(k.index_select(1, kv_indices))
+            kv["v"][layer].copy_(v.index_select(1, kv_indices))
+        else:
             kv["k"][layer].copy_(k[:, :keep])
             kv["v"][layer].copy_(v[:, :keep])
     return L.rms_norm(x, params["final_norm"]), kv
@@ -94,6 +126,31 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict, *,
     logits = last_token_logits(hidden, head_weight(params, cfg),
                                last_index=last_index,
                                final_softcap=cfg.final_softcap)
+    return logits, kv
+
+
+def prefill_packed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                   seg_ids: torch.Tensor, positions: torch.Tensor,
+                   last_indices: torch.Tensor, *, kv_keep: int = 0,
+                   kv_indices: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Prepacked prefill: N requests packed into ONE contiguous sequence.
+
+    tokens/seg_ids/positions: (1, S) — the packed sequence, its per-token
+    segment index (negative = padding slack), and per-token positions that
+    restart at 0 on every segment boundary. ``last_indices``: (N,) packed
+    index of each segment's last token. Returns (per-segment last-token
+    logits (N, V) f32, KV: the first ``kv_keep`` packed tokens or, for
+    per-segment suffix discard, the gather of ``kv_indices`` (K,) packed
+    positions). Attention runs through the kernel's segmented mode, so the
+    result matches N independent ``prefill`` calls.
+    """
+    hidden, kv = forward_full(params, cfg, tokens=tokens, kv_keep=kv_keep,
+                              positions=positions, seg_ids=seg_ids,
+                              kv_indices=kv_indices)
+    logits = packed_last_logits(hidden, head_weight(params, cfg),
+                                last_indices,
+                                final_softcap=cfg.final_softcap)
     return logits, kv
 
 
@@ -117,9 +174,7 @@ def prefill_with_prefix(params: Dict, cfg: ModelConfig, batch: Dict,
                                            device=x.device)).expand(B, S)
     chunk = cfg.hybrid_chunk
     keep_new = max(0, min(kv_keep, prefix_len + S) - prefix_len)
-    shape = (cfg.num_layers, B, keep_new, cfg.num_kv_heads, cfg.head_dim)
-    kv = {"k": torch.empty(shape, dtype=dtype, device=x.device),
-          "v": torch.empty(shape, dtype=dtype, device=x.device)}
+    kv = _kv_out(cfg, B, keep_new, dtype, x.device)
     for layer in range(cfg.num_layers):
         bp = layer_params(params["blocks"], layer)
         h = L.rms_norm(x, bp["ln1"])
@@ -138,4 +193,139 @@ def prefill_with_prefix(params: Dict, cfg: ModelConfig, batch: Dict,
     logits = last_token_logits(hidden, head_weight(params, cfg),
                                last_index=last_index,
                                final_softcap=cfg.final_softcap)
+    return logits, kv
+
+
+def packed_layout(prefix_lens: Sequence[int], suffix_lens: Sequence[int],
+                  S: int, *, rows: int = 0, smax: int = 0, pmax: int = 0
+                  ) -> Dict[str, torch.Tensor]:
+    """Index inputs of one packed step, on the CPU: segment n's
+    ``suffix_lens[n]`` tokens sit back to back in S slots (the rest is
+    slack), each over its own cached prefix of ``prefix_lens[n]`` tokens
+    (0 for a miss).
+
+    Returns ``seg_ids`` (1, S) int32 (slack -1); ``positions`` (1, S) int32,
+    RoPE positions restarting at each segment's own prefix length;
+    ``last_indices`` (N,) each segment's last packed index; ``seg_qidx``
+    (max(rows, N), smax >= every suffix) packed index of segment n's j-th
+    suffix token (-1 = padding); ``prefix_pos`` (N, pmax) int32 absolute prefix positions,
+    padding ``PAD_POS``. ``prefill_packed`` takes the first three,
+    ``prefill_packed_with_prefix`` the last four."""
+    N = len(suffix_lens)
+    seg_ids = torch.full((1, S), -1, dtype=torch.int32)
+    positions = torch.zeros((1, S), dtype=torch.int32)
+    last = torch.zeros((N,), dtype=torch.long)
+    seg_qidx = torch.full((max(rows, N), smax), -1, dtype=torch.long)
+    prefix_pos = torch.full((N, pmax), L.PAD_POS, dtype=torch.int32)
+    off = 0
+    for n, (plen, slen) in enumerate(zip(prefix_lens, suffix_lens)):
+        seg_ids[0, off:off + slen] = n
+        positions[0, off:off + slen] = plen + torch.arange(slen)
+        last[n] = off + slen - 1
+        seg_qidx[n, :slen] = off + torch.arange(slen)
+        prefix_pos[n, :plen] = torch.arange(plen)
+        off += slen
+    return {"seg_ids": seg_ids, "positions": positions,
+            "last_indices": last, "seg_qidx": seg_qidx,
+            "prefix_pos": prefix_pos}
+
+
+def packed_prefix_layout(positions: torch.Tensor, prefix_pos: torch.Tensor,
+                         seg_qidx: torch.Tensor):
+    """Flat-layout ids and positions of the packed-hit attention.
+
+    Queries are the packed (1, S) suffix tokens: ``seg_q`` is each packed
+    token's row in ``seg_qidx`` (-1 for slack), ``pos_q = positions``. Keys
+    are the (R, pmax) prefix buffer viewed as (1, R*pmax), then the (1, S)
+    fresh tokens: a prefix slot carries its row's id where
+    ``prefix_pos < PAD_POS`` and -1 on padding, with ``pos_k =
+    prefix_pos``; a fresh token carries ``seg_q`` and ``positions``.
+    Returns ``(seg_q, seg_k, pos_k)``, each (1, .) int32."""
+    S = positions.shape[1]
+    R, pmax = prefix_pos.shape
+    dev = positions.device
+    seg_qidx = seg_qidx.to(device=dev, dtype=torch.long)
+    rows = torch.arange(seg_qidx.shape[0], device=dev)[:, None].expand_as(
+        seg_qidx)
+    real = seg_qidx >= 0
+    seg_q = torch.full((S,), -1, dtype=torch.int32, device=dev)
+    seg_q[seg_qidx[real]] = rows[real].to(torch.int32)
+    ppos = prefix_pos.to(device=dev, dtype=torch.int32)
+    seg_p = torch.where(ppos < L.PAD_POS,
+                        torch.arange(R, device=dev, dtype=torch.int32)[:, None],
+                        torch.full_like(ppos, -1))
+    seg_k = torch.cat([seg_p.reshape(1, R * pmax), seg_q[None]], dim=1)
+    pos_k = torch.cat([ppos.reshape(1, R * pmax),
+                       positions.to(torch.int32)], dim=1)
+    return seg_q[None], seg_k, pos_k
+
+
+def prefill_packed_with_prefix(params: Dict, cfg: ModelConfig,
+                               tokens: torch.Tensor, positions: torch.Tensor,
+                               last_indices: torch.Tensor, prefix_kv: Dict,
+                               prefix_pos: torch.Tensor,
+                               seg_qidx: torch.Tensor,
+                               inv_idx: Optional[torch.Tensor] = None, *,
+                               kv_indices: Optional[torch.Tensor] = None
+                               ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Prepacked prefill of N SUFFIXES, each over its own cached prefix KV
+    (the packed cache-HIT path).
+
+    The reference's signature: tokens (1, S) packed suffix tokens;
+    ``positions`` (1, S) RoPE positions restarting at each segment's own
+    prefix length; ``last_indices`` (N,); ``prefix_kv`` {"k","v"} (L, R,
+    pmax, KV, hd), row n = segment n's cached prefix, zero-padded to pmax;
+    ``prefix_pos`` (R, pmax) the prefix tokens' absolute positions, padding
+    = ``PAD_POS``; ``seg_qidx`` (Nb, smax) packed index of segment n's j-th
+    suffix token, -1 = padding; ``inv_idx`` (the reference's scatter-back
+    map of its batched layout) is not needed by the flat layout and is
+    accepted for the signature's sake. R may be Nb, or fewer when the
+    caller leaves the ghost rows out.
+
+    The reference computes this attention as a batched per-segment einsum.
+    Here every layer runs the kernel's positioned mode over a flat layout
+    (``packed_prefix_layout``): the packed queries against concat(prefix
+    buffer viewed as (1, R*pmax), fresh (1, S) KV); a query block visits
+    only its own segment's prefix tiles and its own fresh tiles. The result
+    matches N independent ``prefill_with_prefix`` calls.
+
+    Returns (per-segment last-token logits (N, V) f32, fresh KV gathered at
+    ``kv_indices`` (L, 1, K, KV, hd), or None without ``kv_indices``).
+    """
+    _check_dense(cfg)
+    dtype = L.torch_dtype(cfg.dtype)
+    x = L.embed_apply(params["embed"], tokens, dtype)
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    R, pmax = prefix_pos.shape
+    chunk = cfg.hybrid_chunk
+    positions = positions.to(device=x.device)
+    seg_q, seg_k, pos_k = packed_prefix_layout(positions, prefix_pos,
+                                               seg_qidx)
+    kv = None
+    if kv_indices is not None:
+        kv_indices = kv_indices.to(device=x.device, dtype=torch.long)
+        kv = _kv_out(cfg, B, kv_indices.shape[0], dtype, x.device)
+    for layer in range(cfg.num_layers):
+        bp = layer_params(params["blocks"], layer)
+        h = L.rms_norm(x, bp["ln1"])
+        q, k, v = L._qkv_project(bp["attn"], h, cfg, positions, chunk)
+        pk = prefix_kv["k"][layer].reshape(1, R * pmax, KV, hd)
+        pv = prefix_kv["v"][layer].reshape(1, R * pmax, KV, hd)
+        k_full = torch.cat([pk.to(k.dtype), k], dim=1)
+        v_full = torch.cat([pv.to(v.dtype), v], dim=1)
+        out = L.attention(q, k_full, v_full, window=cfg.sliding_window,
+                          softcap=cfg.attn_softcap, seg_q=seg_q, seg_k=seg_k,
+                          pos_q=positions, pos_k=pos_k)
+        out = out.reshape(B, S, H * hd)
+        x = x + chunked_map(lambda oc: oc @ bp["attn"]["wo"], out, chunk)
+        h = L.rms_norm(x, bp["ln2"])
+        x = x + L.mlp_apply(bp["mlp"], h, chunk=chunk)
+        if kv is not None:
+            kv["k"][layer].copy_(k.index_select(1, kv_indices))
+            kv["v"][layer].copy_(v.index_select(1, kv_indices))
+    hidden = L.rms_norm(x, params["final_norm"])
+    logits = packed_last_logits(hidden, head_weight(params, cfg),
+                                last_indices,
+                                final_softcap=cfg.final_softcap)
     return logits, kv

@@ -159,10 +159,16 @@ def test_profile_run_fits_linear_model(setup):
 
 
 def test_engine_config_rejects_later_slices():
-    with pytest.raises(NotImplementedError):
-        EngineConfig(max_pack_requests=2)
+    """The offload tier still raises; packing runs, with the reference's
+    defaults."""
     with pytest.raises(NotImplementedError):
         EngineConfig(offload=True)
+    got, want = EngineConfig(), jengine.EngineConfig()
+    for name in ("max_pack_requests", "pack_token_budget",
+                 "pack_prefix_budget", "prefix_buckets", "autotune_pack",
+                 "pack_inflation", "shape_cost_model", "shape_pad_discount"):
+        assert getattr(got, name) == getattr(want, name), name
+    assert EngineConfig(max_pack_requests=2).max_pack_requests == 2
 
 
 def test_default_device_raises_without_cuda(setup):
