@@ -39,7 +39,19 @@ then runs these phases and raises on the first failure:
      forwards through the segmented and positioned modes); prints the warm
      packed step walls per shape beside the solo walls of the same
      requests, and traces one warm packed-miss and packed-hit step;
-  6. prints the ``kernels`` JSON line (every kernel and attention mode),
+  6. drives the dense decode path through ``build(cfg)``: flash decoding
+     (B6) against its plain version at the decode path's shape (B=16,
+     S=32768, bf16 and f32), a ragged, a GQA and a head_dim-32 softcap
+     case, each timed with an SDPA yardstick and its live-slot bound; then
+     full-width ``decode_step`` — 8 steps after a 1024-token ``prefill``
+     (B=2), each step's logits against ``prefill`` of the same prefix,
+     through the kernels and through the plain versions — and 8 steps at
+     positions 32760..32767 of a 48 GiB ``init_cache(16, 32768)`` filled
+     from a seed (49/24/24 launches per step and no flash attention, the
+     cache written in place at one slot per layer, peak memory under cache
+     + weights + 1 GiB), with the warm step wall, tokens/s and a
+     ``torch.profiler`` trace of one warm step;
+  7. prints the ``kernels`` JSON line (every kernel and attention mode),
      then the result line ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when run
@@ -65,6 +77,11 @@ PROFILE_LEN, POST_LEN = 1030, 100
 # then round once — a few bf16 ulps (2^-8 relative each)
 BF16_TOL = (2e-2, 2e-2)         # |kernel - plain| <= atol + rtol * |plain|
 F32_TOL = (1e-4, 1e-4)
+# flash decoding averages thousands of slots, so its outputs are small
+# (|plain| ~0.01 at S = 32768): a fixed 2e-2 would pass a kernel that drops
+# whole chunks. The atol sits far below what a dropped chunk reads and the
+# rtol above one bf16 ulp (2^-7 relative at most)
+DEC_BF16_TOL = (1e-3, 2e-2)
 LOGITS_MAX_TOL = 0.15           # full-width logits, std ~0.6 at random init
 LOGITS_MEAN_TOL = 0.02
 TOP_K = 5                       # the plain argmax ranks in the kernel's top 5
@@ -77,6 +94,10 @@ SEG_S = 2048
 # packed-hit kernel shape: per-row cached prefix and suffix lengths
 HIT_PLENS, HIT_SLENS, HIT_S, HIT_PMAX = (1024, 768, 512, 1024), \
     (128, 96, 160, 128), 512, 1024
+# decode: the JAX package's decode_32k shape (B=128, S=32768) cut to B=16,
+# since its 384 GiB of KV does not fit one 80 GB card (16 rows: 48 GiB)
+DEC_B, DEC_S, DEC_STEPS = 16, 32768, 8
+DEC_PREFIX, DEC_CONS_B = 1024, 2      # consistency: prefill 1024 tokens, B=2
 
 # JSON entries: (name, launch counter, TPU kernel it replaces); the entry
 # "flash_attention" is the attention kernel's dense mode
@@ -89,8 +110,11 @@ KERNELS = (
     ("flash_attention[positioned]", "flash_attention[positioned]",
      "src/repro/kernels/flash_attention.py:78"),
     ("fused_mlp", "fused_mlp", "src/repro/kernels/fused_mlp.py:46"),
+    ("decode_attention", "decode_attention",
+     "src/repro/kernels/decode_attention.py:55"),
 )
-SOURCE = {"rmsnorm": "rmsnorm", "fused_mlp": "fused_mlp"}
+SOURCE = {"rmsnorm": "rmsnorm", "fused_mlp": "fused_mlp",
+          "decode_attention": "decode_attention"}
 
 
 def fail(msg: str) -> None:
@@ -132,14 +156,17 @@ def main() -> int:
     torch.cuda.set_device(dev)
     results = check_kernels(torch, dev)
     results.update(check_packed_kernels(torch, dev))
+    results.update(check_decode_kernel(torch, dev))
     check_full_prefill(torch, dev)
     check_packed_forwards(torch, dev)
     solo = run_engine(torch, dev)
     packed = run_packed_engine(torch, dev)
-    launches = {k: solo.get(k, 0) + packed.get(k, 0)
-                for k in set(solo) | set(packed)}
-    print(f"main path launches (solo engine + packed engine): {launches}",
-          flush=True)
+    decode = run_decode(torch, dev)
+    paths = (solo, packed, decode)
+    launches = {k: sum(p.get(k, 0) for p in paths)
+                for k in set().union(*paths)}
+    print(f"main path launches (solo engine + packed engine + decode "
+          f"steps): {launches}", flush=True)
 
     lines = []
     for name, counter, replaces in KERNELS:
@@ -488,6 +515,97 @@ def check_packed_kernels(torch, dev):
     return out
 
 
+def decode_live(k, kv_len) -> int:
+    """Live cache slots of a decode call: ``min(kv_len[b], S)`` summed over
+    the rows (a host read of ``kv_len``, made by this script only)."""
+    return int(kv_len.clamp(0, k.shape[1]).sum().item())
+
+
+def decode_bound_bytes(q, k, kv_len) -> int:
+    """Bytes a decode call must move: q and the output once, K and V over
+    the live slots of each row only, and ``kv_len``."""
+    B, _, H, d = q.shape
+    KV = k.shape[2]
+    return (k.element_size() * (2 * B * H * d + 2 * decode_live(k, kv_len)
+                                * KV * d) + kv_len.numel() * 4)
+
+
+def check_decode_kernel(torch, dev):
+    """Phase 2, flash decoding (B6): the kernel against its plain version on
+    the card at the decode path's shape (bf16, and once in f32) and at a
+    ragged, a GQA and a head_dim-32 softcap shape; times with an SDPA
+    yardstick over the live slots; live-slot bounds."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.runtime.hw import H100_SXM as chip
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rng = np.random.default_rng(SEED + 9)
+    ragged = [1, 1000, 10923, DEC_S] + rng.integers(
+        1, DEC_S + 1, DEC_B - 4).tolist()
+    # (label, B, S, H, KV, d, kv_len, softcap)
+    cases = (
+        ("decode_path", DEC_B, DEC_S, 16, 16, 64, [DEC_S] * DEC_B, 0.0),
+        ("ragged", DEC_B, DEC_S, 16, 16, 64, ragged, 0.0),
+        ("gqa", 4, 8192, 16, 2, 64, [8192, 5000, 77, 8192], 0.0),
+        ("d32_softcap", 4, 4100, 8, 4, 32, [4100, 4099, 2050, 1], 50.0),
+    )
+    out = {}
+    for label, B, S, H, KV, d, lens, cap in cases:
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        errs = {}
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, DEC_BF16_TOL)):
+            q = torch.randn((B, 1, H, d), generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn((B, S, KV, d), generator=gen, device=dev
+                                ).to(dtype) for _ in range(2))
+            errs[dtype] = compare(
+                torch, da.decode_attention(q, k, v, kv_len, softcap=cap),
+                da.decode_attention_plain(q, k, v, kv_len, softcap=cap), tol,
+                f"decode_attention {label} {dtype}")
+            if dtype == torch.float32:
+                del q, k, v
+        live = decode_live(k, kv_len)
+        nbytes = decode_bound_bytes(q, k, kv_len)
+        pairs = live * H
+        b_ms, b_by = bound(chip, 4.0 * d * pairs, nbytes)
+        splits, chunk = da.split_rule(B * KV, S, da._sm_count(dev.index))
+        print(f"bound decode_attention[{label}]: {nbytes} bytes (q, output, "
+              f"kv_len and K/V over {live} live slots of {B * S}), {pairs} "
+              f"live (q, slot) pairs over {H} heads -> {b_ms:.6f} ms "
+              f"({b_by}); split rule: {splits} splits of {chunk} slots, "
+              f"{B * KV * splits} blocks", flush=True)
+        qt = q.transpose(1, 2).contiguous()                 # (B, H, 1, d)
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        mask = None if min(lens) >= S else (
+            torch.arange(S, device=dev)[None, :] < kv_len[:, None]
+        )[:, None, None, :]
+
+        def library(qt=qt, kt=kt, vt=vt, mask=mask, gqa=H != KV):
+            # SDPA over the live slots (a boolean mask where rows are
+            # ragged); it has no softcap, so that case has no yardstick
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=gqa)
+
+        row = dict(
+            max_abs_err=errs[torch.bfloat16],
+            f32_err=errs[torch.float32],
+            ms=time_ms(torch, lambda: da.decode_attention(q, k, v, kv_len,
+                                                          softcap=cap)),
+            plain_ms=time_ms(torch, lambda: da.decode_attention_plain(
+                q, k, v, kv_len, softcap=cap)),
+            library_ms=time_ms(torch, library) if not cap else None,
+            bound_ms=b_ms, bound_by=b_by,
+            shape=f"B={B} S={S} H={H} KV={KV} d={d} {label} bf16, live "
+                  f"slots {live}/{B * S}")
+        report(f"decode_attention[{label}]", row)
+        if label == "decode_path":
+            out["decode_attention"] = row
+        del q, k, v, kt, vt, qt
+    return out
+
+
 def report(name: str, row) -> None:
     lib, f32 = row["library_ms"], row["f32_err"]
     print(f"kernel {name} [{row['shape']}]: max_abs_err="
@@ -500,14 +618,15 @@ def report(name: str, row) -> None:
 
 # ---- phase 3: a full-width forward, kernels vs plain versions ----------------
 def kernel_modules():
-    from repro_torch.kernels import flash_attention, fused_mlp, rmsnorm
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     fused_mlp, rmsnorm)
     return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
-            "fused_mlp": fused_mlp}
+            "fused_mlp": fused_mlp, "decode_attention": decode_attention}
 
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the model's three kernel wrappers to their plain versions (the
+    """Route the model's kernel wrappers to their plain versions (the
     comparison run of this script only)."""
     mods = kernel_modules()
     saved = {name: getattr(m, name) for name, m in mods.items()}
@@ -522,7 +641,8 @@ def plain_versions():
 
 def reset_launches() -> None:
     mods = kernel_modules()
-    mods["rmsnorm"].launches = mods["fused_mlp"].launches = 0
+    for name in ("rmsnorm", "fused_mlp", "decode_attention"):
+        mods[name].launches = 0
     modes = mods["flash_attention"].mode_launches
     for mode in modes:
         modes[mode] = 0
@@ -539,13 +659,19 @@ def read_launches():
 
 
 def kernel_launches(launches):
-    """The three kernels' totals (every attention mode counted once)."""
+    """The kernels' totals (every attention mode counted once)."""
     return {k: launches[k] for k in kernel_modules()}
 
 
 def per_forward(cfg):
     return {"rmsnorm": 2 * cfg.num_layers + 1,
-            "flash_attention": cfg.num_layers, "fused_mlp": cfg.num_layers}
+            "flash_attention": cfg.num_layers, "fused_mlp": cfg.num_layers,
+            "decode_attention": 0}
+
+
+def per_decode_step(cfg):
+    return {"rmsnorm": 2 * cfg.num_layers + 1, "flash_attention": 0,
+            "fused_mlp": cfg.num_layers, "decode_attention": cfg.num_layers}
 
 
 def model(torch, dev):
@@ -590,12 +716,15 @@ def check_full_prefill(torch, dev) -> None:
              f"(<= {LOGITS_MEAN_TOL})")
 
 
-def compare_rows(torch, got, want, what: str) -> None:
-    """Per-segment logits, kernels against plain versions: max and mean |Δ|
-    within the full-width limits, and the plain version's argmax among the
-    kernel's top 5 (an equal argmax means little at random init, where the
-    top two of 151,936 logits often lie closer than bf16's rounding over
-    24 layers; the top-two gap is printed beside each)."""
+def compare_rows(torch, got, want, what: str, names=("kernel", "plain"),
+                 unit: str = "segment") -> None:
+    """Per-segment logits, kernels against plain versions (or, with
+    ``names``, any path against its reference): max and mean |Δ| within the
+    full-width limits, and the reference's argmax among the top 5 of
+    ``got`` (an equal argmax means little at random init, where the top
+    two of 151,936 logits often lie closer than bf16's rounding over 24
+    layers; the top-two gap is printed beside each)."""
+    a, b = names
     if not torch.isfinite(got).all():
         fail(f"{what}: non-finite logits")
     for n in range(got.shape[0]):
@@ -604,13 +733,13 @@ def compare_rows(torch, got, want, what: str) -> None:
         top = got[n].topk(TOP_K).indices.tolist()
         two = want[n].topk(2).values
         rank = top.index(a_want) + 1 if a_want in top else None
-        print(f"{what} segment {n}: max|kernel-plain|={err.max().item():.4e} "
-              f"mean={err.mean().item():.4e} plain argmax {a_want} at "
-              f"kernel rank {rank if rank else f'>{TOP_K}'}, plain top-two "
+        print(f"{what} {unit} {n}: max|{a}-{b}|={err.max().item():.4e} "
+              f"mean={err.mean().item():.4e} {b} argmax {a_want} at "
+              f"{a} rank {rank if rank else f'>{TOP_K}'}, {b} top-two "
               f"gap {(two[0] - two[1]).item():.4e}", flush=True)
         if (err.max().item() > LOGITS_MAX_TOL
                 or err.mean().item() > LOGITS_MEAN_TOL or rank is None):
-            fail(f"{what} segment {n}: logits disagree")
+            fail(f"{what} {unit} {n}: logits disagree")
 
 
 def check_packed_forwards(torch, dev) -> None:
@@ -909,6 +1038,173 @@ def run_packed_engine(torch, dev):
     return launches
 
 
+# ---- phase 6: the dense decode path ------------------------------------------
+def run_decode(torch, dev):
+    """Full-width decode through ``build(cfg)``: the consistency check at
+    B=2, then the depth run at B=16, S=32768. Returns the depth run's
+    launches (its 8 steps are the decode path's counted run)."""
+    import gc
+    from repro_torch.models.model import build
+    cfg, params = model(torch, dev)
+    api = build(cfg)
+    check_decode_consistency(torch, dev, api, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run_decode_depth(torch, dev, api, params)
+
+
+def check_decode_consistency(torch, dev, api, params) -> None:
+    """``prefill`` of DEC_PREFIX tokens fills an ``init_cache(2, 2048)``;
+    DEC_STEPS ``decode_step``s then feed the next tokens of a seeded
+    sequence, and each step's logits are held against ``prefill`` of the
+    sequence up to that token — through the kernels, then through the
+    plain versions — within the full-width logits limits, with the
+    prefill's argmax in the decode's top 5."""
+    import numpy as np
+    cfg = api.cfg
+    B, P = DEC_CONS_B, DEC_PREFIX
+    rng = np.random.default_rng(SEED + 4)
+    seq = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       (B, P + DEC_STEPS)), device=dev)
+    for route in ("kernels", "plain"):
+        ctx = plain_versions() if route == "plain" else contextlib.nullcontext()
+        with torch.no_grad(), ctx:
+            cache = api.init_cache(B, 2 * P, device=dev)
+            _, kv = api.prefill(params, {"tokens": seq[:, :P]}, kv_keep=P)
+            for n in ("k", "v"):
+                cache[n][:, :, :P] = kv[n]
+            del kv
+            for i in range(DEC_STEPS):
+                pos = torch.full((B,), P + i, dtype=torch.int32, device=dev)
+                reset_launches()
+                got, cache = api.decode_step(params, seq[:, P + i], cache, pos)
+                launches = kernel_launches(read_launches())
+                want, _ = api.prefill(params, {"tokens": seq[:, :P + i + 1]})
+                torch.cuda.synchronize()
+                expect = (per_decode_step(cfg) if route == "kernels"
+                          else dict.fromkeys(kernel_modules(), 0))
+                if launches != expect:
+                    fail(f"decode step ({route}) launches {launches}, "
+                         f"expected {expect}")
+                compare_rows(torch, got, want,
+                             f"decode vs prefill ({route}) step {i} "
+                             f"position {P + i}", names=("decode", "prefill"),
+                             unit="row")
+
+
+def run_decode_depth(torch, dev, api, params):
+    """DEC_STEPS decode steps at positions S-8..S-1 of an
+    ``init_cache(16, 32768)`` (48 GiB of bf16 KV) filled from a seeded
+    generator one layer at a time in bf16: per-step launches (49/24/24, no
+    flash attention), finite logits, the written slot new and finite in
+    every layer while every other slot keeps its f32 checksum, and the peak
+    memory of each step under cache + weights + 1 GiB (no cache copy).
+    Prints the warm step wall, tokens/s and one traced warm step."""
+    import numpy as np
+    cfg = api.cfg
+    B, S, Lyr = DEC_B, DEC_S, cfg.num_layers
+    P0 = S - DEC_STEPS
+    cache = api.init_cache(B, S, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    with torch.no_grad():
+        for n in ("k", "v"):
+            for layer in range(Lyr):
+                cache[n][layer].normal_(generator=gen)
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    weight_bytes = sum(a.numel() * a.element_size() for a in _leaves(params))
+    names = ("k", "v")
+
+    def checksums():
+        """Per (k/v, layer): f32 sum of slots [0, P0), and per-slot f32 sums
+        of slots [P0, S)."""
+        head = torch.stack([cache[n][layer, :, :P0].sum(dtype=torch.float32)
+                            for n in names for layer in range(Lyr)])
+        tail = torch.stack([cache[n][layer, :, P0:].sum(
+            dim=(0, 2, 3), dtype=torch.float32)
+            for n in names for layer in range(Lyr)])
+        return head, tail
+
+    head0, tail0 = checksums()
+    prev_tail = tail0
+    rng = np.random.default_rng(SEED + 6)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (DEC_STEPS + 1, B)),
+                           dtype=torch.long, device=dev)
+    torch.cuda.synchronize()
+    print(f"decode depth: init_cache({B}, {S}) {cache_bytes} bytes of "
+          f"{cfg.dtype} KV, weights {weight_bytes} bytes, allocated "
+          f"{torch.cuda.memory_allocated()} bytes after the fill", flush=True)
+    walls, peak = [], 0
+    reset_launches()                         # the decode path starts here
+    for i in range(DEC_STEPS):
+        p = P0 + i
+        old = torch.stack([cache[n][:, :, p] for n in names])
+        pos = torch.full((B,), p, dtype=torch.int32, device=dev)
+        before = kernel_launches(read_launches())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, out = api.decode_step(params, toks[i], cache, pos)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        step = {k: v - before[k] for k, v in
+                kernel_launches(read_launches()).items()}
+        if step != per_decode_step(cfg):
+            fail(f"decode step {i} launches {step}, expected "
+                 f"{per_decode_step(cfg)}")
+        if out is not cache or not torch.isfinite(logits).all():
+            fail(f"decode step {i}: cache not returned in place, or "
+                 f"non-finite logits")
+        new = torch.stack([cache[n][:, :, p] for n in names])
+        head, tail = checksums()
+        changed = (new != old).flatten(2).any(-1)          # (k/v, layer)
+        if not (changed.all() and torch.isfinite(new).all()):
+            fail(f"decode step {i}: slot {p} not rewritten with finite "
+                 f"values in every layer")
+        if not (torch.equal(head, head0)
+                and torch.equal(tail[:, :i], prev_tail[:, :i])
+                and torch.equal(tail[:, i + 1:], tail0[:, i + 1:])):
+            fail(f"decode step {i}: a slot other than {p} changed")
+        prev_tail = tail
+    launches = read_launches()               # the decode path ends here
+    limit = cache_bytes + weight_bytes + (1 << 30)
+    print(f"decode depth: {DEC_STEPS} steps at positions {P0}..{S - 1}, "
+          f"launches {kernel_launches(launches)} ({per_decode_step(cfg)} "
+          f"per step); written slot new and finite in all {Lyr} layers, "
+          f"other slots' checksums unchanged; peak allocated over the steps "
+          f"{peak} bytes (limit cache + weights + 1 GiB = {limit})",
+          flush=True)
+    if peak >= limit:
+        fail("decode steps allocated more than cache + weights + 1 GiB: "
+             "the cache was copied")
+    warm = statistics.median(walls[1:])
+    print(f"decode step latency B={B} S={S}: step walls "
+          f"{[round(w, 3) for w in walls]} ms; warm wall median {warm:.3f} ms "
+          f"(n={len(walls) - 1}), {B / warm * 1e3:.1f} tokens/s "
+          f"(decode_32k cut from B=128 to B={B}: its 384 GiB of KV does not "
+          f"fit one 80 GB card)", flush=True)
+    trace_decode_step(torch, api, params, cache, toks[DEC_STEPS], S - 1)
+    return launches
+
+
+def trace_decode_step(torch, api, params, cache, tokens, position) -> None:
+    """One more warm decode step (rewriting slot ``position``), traced."""
+    from torch.profiler import ProfilerActivity, profile
+    pos = torch.full((tokens.shape[0],), position, dtype=torch.int32,
+                     device=tokens.device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            api.decode_step(params, tokens, cache, pos)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    report_trace(torch, prof, f"decode B={tokens.shape[0]} "
+                 f"S={cache['k'].shape[2]}", wall)
+
+
 def trace_steps(torch, eng, cfg, rng) -> None:
     """One more warm miss step and one warm hit step (solo)."""
     user = rng.integers(0, cfg.vocab_size, PROFILE_LEN).tolist()
@@ -926,8 +1222,6 @@ def trace_one_step(torch, eng, label: str, packed: bool = False) -> None:
     read. ``label`` is the kind the step must be: ``miss``/``hit`` (solo
     steps) or, with ``packed``, a packed step of that kind."""
     from torch.profiler import ProfilerActivity, profile
-    groups = (("flash_fwd", "flash_attention"), ("fused_mlp", "fused_mlp"),
-              ("rmsnorm", "rmsnorm"))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -946,6 +1240,16 @@ def trace_one_step(torch, eng, label: str, packed: bool = False) -> None:
                  f"pmax={rec.pmax} n={rec.n_requests}")
     else:
         label = f"{label} S={rec.S} P={rec.pmax}"
+    report_trace(torch, prof, label, rec.wall * 1e3)
+
+
+def report_trace(torch, prof, label: str, wall: float) -> None:
+    """Print a profiled step's ``trace`` lines: device ms and launches per
+    kernel group and of the other device ops, busy ms and idle share of
+    the step's wall (ms), the widest device gap and the top host ops."""
+    groups = (("flash_fwd", "flash_attention"), ("fused_mlp", "fused_mlp"),
+              ("rmsnorm", "rmsnorm"), ("decode_split", "decode_attention"),
+              ("decode_combine", "decode_attention"))
     dev_ms, n = {}, {}
     evs = sorted((e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA),
@@ -955,7 +1259,6 @@ def trace_one_step(torch, eng, label: str, packed: bool = False) -> None:
         dev_ms[g] = dev_ms.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
         n[g] = n.get(g, 0) + 1
     busy = sum(dev_ms.values())
-    wall = rec.wall * 1e3
     print(f"trace {label}: step wall {wall:.3f} ms "
           f"(profiled), device busy {busy:.3f} ms, idle share "
           f"{'not measured' if not busy else f'{1 - busy / wall:.4f}'}; "

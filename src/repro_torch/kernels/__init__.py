@@ -6,9 +6,11 @@ version and with a launch counter:
                                                (dense mode + q_offset,
                                                segmented, positioned)
   fused_mlp        csrc/fused_mlp.cu        <- repro/kernels/fused_mlp.py
+  decode_attention csrc/decode_attention.cu <- repro/kernels/decode_attention.py
+                                               (split-K, with a combine)
 
 Sources are built on first use (``_build``); nothing is built or loaded at
 import time.
 """
 
-SOURCES = ("rmsnorm", "flash_attention", "fused_mlp")
+SOURCES = ("rmsnorm", "flash_attention", "fused_mlp", "decode_attention")

@@ -1,0 +1,167 @@
+"""Flash decoding: one query token per (batch row, query head) against a
+deep KV cache, with a per-row ``kv_len`` mask and an optional tanh softcap.
+
+Replaces the Pallas kernel ``repro/kernels/decode_attention.py::
+decode_attention`` at the layout of its wrapper ``repro.kernels.ops.
+decode_attention``: q (B, 1, H, d), caches (B, S, KV, d), ``kv_len`` (B,)
+-> (B, 1, H, d). Query head h reads kv head ``h // (H // KV)``; slots
+``>= kv_len[b]`` are masked (``kv_len >= S`` makes every slot live); the
+scale is ``d ** -0.5``. Scores, softmax and P.V are f32, with p kept in f32
+as the Pallas kernel keeps it; the result is cast to q's dtype. Any S is
+taken: the cache is neither padded nor copied.
+
+The Pallas grid (B, KV, splits) walks the splits serially with an (m, l,
+acc) carry. The Hopper kernel (``csrc/decode_attention.cu``) runs the
+splits in parallel, (B*KV, splits) blocks, each over one chunk of slots up
+to ``kv_len[b]`` (a chunk past it loads nothing), and a combine kernel
+merges the splits' f32 partials. The number of splits is ``split_rule`` of
+(B*KV, S) and the card's SM count; it reads no ``kv_len`` on the host, so a
+decode step never waits on the device. At G = 1 the kernel is a GEMV over
+the live cache slots, bound by their bytes.
+
+A row with ``kv_len = 0`` gives 0 (the reference's softmax over no live
+slot gives the mean of V instead; see ROADMAP §C). ``decode_attention``
+launches the kernel for CUDA tensors and uses ``decode_attention_plain`` for
+CPU tensors; ``launches`` counts calls that launched it (one per call: the
+split kernel and its combine).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64)                # instantiated in csrc/decode_attention.cu
+MAX_GROUP = 8                       # query heads per kv head
+BLOCKS_PER_SM = 4                   # split rule: blocks to aim for per SM
+CHUNK_ALIGN = 64                    # split rule: slots per chunk, a multiple
+launches = 0
+
+_ARGTYPES = ([ctypes.c_void_p] * 7     # q, k, v, kv_len, out, ws, strides
+             + [ctypes.c_int] * 7      # B, S, H, KV, d, splits, chunk
+             + [ctypes.c_float, ctypes.c_float,         # scale, softcap
+                ctypes.c_int, ctypes.c_void_p])         # dtype, stream
+
+
+def split_rule(rows: int, S: int, n_sm: int) -> Tuple[int, int]:
+    """(splits, chunk) for ``rows = B * KV`` blocks' worth of (batch row, kv
+    head) pairs over S slots on a card of ``n_sm`` SMs: enough splits for
+    about ``BLOCKS_PER_SM`` blocks per SM, each chunk a multiple of
+    ``CHUNK_ALIGN`` slots; ``splits * chunk >= S > (splits - 1) * chunk``
+    for S > 0."""
+    want = max(1, -(-BLOCKS_PER_SM * n_sm // max(rows, 1)))
+    chunk = max(1, -(-S // want))
+    chunk = -(-chunk // CHUNK_ALIGN) * CHUNK_ALIGN
+    return max(1, -(-S // chunk)), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+           kv_len: torch.Tensor) -> None:
+    if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 \
+            or v_cache.shape != k_cache.shape:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} (B, 1, H, d),"
+                         f" caches {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)} (B, S, KV, d)")
+    B, _, H, d = q.shape
+    _, _, KV, dk = k_cache.shape
+    if k_cache.shape[0] != B or dk != d or KV == 0 or H % KV:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} does not fit "
+                         f"caches {tuple(k_cache.shape)}")
+    if tuple(kv_len.shape) != (B,) or kv_len.is_floating_point():
+        raise ValueError(f"decode_attention: kv_len must be (B,) = ({B},) "
+                         f"integers, got {tuple(kv_len.shape)} {kv_len.dtype}")
+
+
+def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, kv_len: torch.Tensor, *,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version (``repro.kernels.ref.decode_attention_ref`` at
+    the ``ops`` layout): f32 scores, softmax and P.V, cast to q's dtype; a
+    row with no live slot gives 0."""
+    _check(q, k_cache, v_cache, kv_len)
+    B, _, H, d = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qf = q.reshape(B, KV, G, d).float() * d ** -0.5
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float())
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    live = (torch.arange(S, device=q.device)[None, :]
+            < kv_len.to(q.device).reshape(B, 1))[:, None, None, :]
+    s = s.masked_fill(~live, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * live
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    out = out / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return out.reshape(B, 1, H, d).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_len: torch.Tensor, *,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """q: (B, 1, H, d); k_cache, v_cache: (B, S, KV, d); kv_len: (B,) ints
+    -> (B, 1, H, d).
+
+    The caches may be strided views (a layer of a stacked cache, a slice of
+    its slots or heads) with unit stride over d and 16-byte aligned rows;
+    anything else raises rather than being copied."""
+    _check(q, k_cache, v_cache, kv_len)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, kv_len,
+                                      softcap=softcap)
+    if q.device.type != "cuda" or any(t.device != q.device
+                                      for t in (k_cache, v_cache, kv_len)):
+        raise ValueError("decode_attention: q, the caches and kv_len must "
+                         "share one CUDA device")
+    B, _, H, d = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: head_dim {d} not in {HEAD_DIMS}")
+    if H // KV > MAX_GROUP:
+        raise ValueError(f"decode_attention: {H // KV} query heads per kv "
+                         f"head, the kernel takes at most {MAX_GROUP}")
+    if not (q.dtype == k_cache.dtype == v_cache.dtype):
+        raise ValueError("decode_attention: q and cache dtypes differ")
+    code = _build.dtype_code(q.dtype)
+    vec = 16 // q.element_size()             # elements per 16-byte load
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if (t.stride(-1) != 1 or any(st % vec for st in t.stride()[:3])
+                or t.data_ptr() % 16):
+            raise ValueError(
+                f"decode_attention: {name} strides {t.stride()} must be 1 "
+                f"over d and multiples of {vec} elements, from a 16-byte "
+                f"aligned address (the kernel reads 16-byte rows; it does "
+                f"not copy the cache)")
+    if q.stride(-1) != 1:
+        q = q.contiguous()                   # one token: (B, H, d) is tiny
+    kv_len = kv_len.to(torch.int32).contiguous()
+    out = torch.empty((B, 1, H, d), dtype=q.dtype, device=q.device)
+    if B == 0 or H == 0:
+        return out
+    splits, chunk = split_rule(B * KV, S, _sm_count(q.device.index))
+    ws = torch.empty(B * KV * splits * (H // KV) * (d + 2),
+                     dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 8)(
+        q.stride(0), q.stride(2), *k_cache.stride()[:3],
+        *v_cache.stride()[:3])
+    fn = _build.function("decode_attention", "decode_attention_fwd",
+                         _ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                 ctypes.addressof(strides), B, S, H, KV, d, splits, chunk,
+                 d ** -0.5, float(softcap), code,
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "decode_attention")
+    global launches
+    launches += 1
+    return out

@@ -2,12 +2,13 @@
 
 Port of ``repro.models.layers`` (``rms_norm``, ``rope_apply``,
 ``_qkv_project``, the non-mesh branches of ``attention_prefill``, dense and
-segmented, ``mlp_apply``, ``embed_apply``). Parameters are plain
-dicts of tensors, activations run in the config's dtype, softmax/norm
-internals in f32. RMSNorm, attention and the MLP go through the kernel
-wrappers of ``repro_torch.kernels``: hand-written Hopper kernels on CUDA
-tensors, their plain PyTorch versions on CPU tensors. Token-wise layers run
-under hybrid prefilling (``core.hybrid_prefill.chunked_map``).
+segmented, ``decode_attention``, ``attention_decode``, ``mlp_apply``,
+``embed_apply``). Parameters are plain dicts of tensors, activations run in
+the config's dtype, softmax/norm internals in f32. RMSNorm, attention
+(prefill and decode) and the MLP go through the kernel wrappers of
+``repro_torch.kernels``: hand-written Hopper kernels on CUDA tensors, their
+plain PyTorch versions on CPU tensors. Token-wise layers run under hybrid
+prefilling (``core.hybrid_prefill.chunked_map``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hybrid_prefill import chunked_map
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_mlp as _mlp
 from repro_torch.kernels import rmsnorm as _rms
@@ -119,6 +121,58 @@ def attention_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
     out = chunked_map(lambda oc: oc @ p["wo"], out, chunk)
     return out, k, v
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_len, *, softcap: float = 0.0,
+                     ring: bool = False) -> torch.Tensor:
+    """One-token attention. q: (B, 1, H, d); caches: (B, S, KV, d);
+    ``kv_len``: a scalar or (B,) integer tensor on q's device.
+
+    ``ring`` (a sliding-window ring buffer: every slot below
+    ``min(kv_len, S)`` is live) is kept for the reference's signature only:
+    the B6 kernel and its plain version already take ``kv_len > S`` as
+    every slot live, so it changes nothing here. The reference's
+    ``head_scale`` is not ported (no dense caller passes it). Unlike the
+    reference, p stays f32 in P.V and q is scaled in f32 (the B6 kernel's
+    order; ROADMAP §C6)."""
+    kv_len = torch.as_tensor(kv_len, device=q.device).expand(q.shape[0])
+    return _da.decode_attention(q, k_cache, v_cache, kv_len, softcap=softcap)
+
+
+def attention_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+                     position: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, ring: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token attention step. x: (B, 1, D); position: (B,) ints on x's
+    device. Writes the new token's k/v into ``k_cache``/``v_cache`` IN
+    PLACE at slot ``position[0]`` (mod S when ``ring``; uniform decode: all
+    rows share row 0's position, as in the reference), attends over slots
+    below ``position[0] + 1``, and returns (out (B, 1, D), k_cache, v_cache)
+    — the same cache tensors. The reference returns updated copies; in
+    place, a decode step never holds a second cache."""
+    B = x.shape[0]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    S = k_cache.shape[1]
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    pos2d = position.reshape(B, 1)
+    q = rope_apply(q.reshape(B, 1, H, hd), pos2d, cfg.rope_theta)
+    k = rope_apply(k.reshape(B, 1, KV, hd), pos2d, cfg.rope_theta)
+    v = v.reshape(B, 1, KV, hd)
+    # past the end of a plain cache the reference's dynamic_update_slice
+    # clamps the slot to S - 1; clamp on the device too (no host sync)
+    slot = (position[0] % S if ring else position[0].clamp(0, S - 1)
+            ).long().reshape(1)
+    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+    out = decode_attention(q, k_cache, v_cache, position[0] + 1,
+                           softcap=cfg.attn_softcap, ring=ring)
+    out = out.reshape(B, 1, H * hd) @ p["wo"]
+    return out.to(x.dtype), k_cache, v_cache
 
 
 # --------------------------------------------------------------------------

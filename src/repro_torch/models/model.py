@@ -1,0 +1,66 @@
+"""Model API: one object per config over the port's dense family.
+
+Port of ``repro.models.model``'s ``ModelAPI`` and ``build``:
+
+    defs()                                   parameter shapes and inits
+    prefill(params, batch, kv_keep)          -> (last logits, prefix KV)
+    decode_step(params, tokens, cache, position) -> (logits, cache)
+    init_cache(batch, max_len, device)       zeroed KV cache on ``device``
+
+Parameters are cast to ``cfg.dtype`` on every call, as the reference casts
+them (leaves already in that dtype are passed as they are, so nothing is
+copied). ``decode_step`` updates the cache in place and returns the same
+dict. ``train_loss`` waits for the training slice (ROADMAP A6). The
+sharding argument ``num_shards`` and the dry-run's ``input_specs``,
+``make_batch`` and ``init_cache(abstract=True)`` wait for the sharding and
+dry-run slice (A7).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import params as P
+from repro_torch.models import transformer as tfm
+from repro_torch.runtime.device import DeviceLike
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    cfg: ModelConfig
+    defs: Callable[[], Any]
+    train_loss: Callable[..., Any]
+    prefill: Callable[..., Any]
+    decode_step: Callable[..., Any]
+    init_cache: Callable[..., Any]
+
+
+def _train_loss(*args, **kwargs):
+    raise NotImplementedError(
+        "train_loss comes with the training slice of the port (ROADMAP A6)")
+
+
+def build(cfg: ModelConfig) -> ModelAPI:
+    """The API of a dense, non-local_global config; other families raise
+    until their slices are ported."""
+    tfm._check_dense(cfg)
+    dtype = L.torch_dtype(cfg.dtype)
+
+    def cast(params: Dict) -> Dict:
+        return P.cast_params(params, dtype, params["embed"]["tok"].device)
+
+    def init_cache(batch: int, max_len: int, device: DeviceLike = "cuda"):
+        return tfm.init_cache(cfg, batch, max_len, device=device)
+
+    return ModelAPI(
+        cfg=cfg,
+        defs=lambda: P.param_defs(cfg),
+        train_loss=_train_loss,
+        prefill=lambda params, batch, kv_keep=0:
+            tfm.prefill(cast(params), cfg, batch, kv_keep=kv_keep),
+        decode_step=lambda params, tokens, cache, position:
+            tfm.decode_step(cast(params), cfg, tokens, cache, position),
+        init_cache=init_cache,
+    )

@@ -2,8 +2,10 @@
 
 Port of ``repro.models.transformer``'s ``head_weight``, ``forward_full``
 (dense configs, with ``kv_keep``, ``positions``, ``seg_ids`` and
-``kv_indices``), ``prefill``, ``prefill_packed``, ``prefill_with_prefix``
-and ``prefill_packed_with_prefix``.
+``kv_indices``), ``prefill``, ``prefill_packed``, ``prefill_with_prefix``,
+``prefill_packed_with_prefix``, and the dense branches of ``init_cache``,
+``_block_decode`` and ``decode_step`` (one token against a KV cache, ring
+caches for sliding windows).
 Parameters keep the reference's stacked tree (``blocks/*`` with a leading
 layer axis, ``embed/tok``, ``final_norm``; see ``models/params.py``), and
 the layer scan becomes a Python loop over layers. The local_global (gemma2)
@@ -11,7 +13,8 @@ and fp8-weight branches come with later slices.
 
 KV payloads keep the reference layout: (L, B, keep, KV, hd). The packed
 forwards return per-segment logits and the fresh KV gathered at
-``kv_indices`` (L, 1, K, KV, hd).
+``kv_indices`` (L, 1, K, KV, hd). ``decode_step`` updates its (L, B, S, KV,
+hd) cache in place, layer by layer, where the reference returns a new one.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hybrid_prefill import (chunked_map, last_token_logits,
                                              packed_last_logits)
 from repro_torch.models import layers as L
+from repro_torch.runtime.device import DeviceLike, resolve_device
 
 
 def _check_dense(cfg: ModelConfig) -> None:
@@ -329,3 +333,59 @@ def prefill_packed_with_prefix(params: Dict, cfg: ModelConfig,
                                 last_indices,
                                 final_softcap=cfg.final_softcap)
     return logits, kv
+
+
+# --------------------------------------------------------------------------
+# decode (one token against a KV cache)
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+    """Zeroed KV cache {"k", "v"}, each (L, batch, s, KV, hd) in
+    ``cfg.dtype``: ``s = max_len``, or ``min(sliding_window, max_len)`` for
+    a sliding-window config, whose cache is a ring buffer bounded by the
+    window. The local_global (gemma2) ring/global pair comes with that
+    family's slice."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    s = min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
+    shape = (cfg.num_layers, batch, s, cfg.num_kv_heads, cfg.head_dim)
+    dtype = L.torch_dtype(cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _block_decode(bp: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+                  position: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                  ring: bool) -> torch.Tensor:
+    """One layer of a decode step; writes the token's k/v into ``kc``/``vc``
+    in place."""
+    h = L.rms_norm(x, bp["ln1"])
+    attn, _, _ = L.attention_decode(bp["attn"], h, cfg, position=position,
+                                    k_cache=kc, v_cache=vc, ring=ring)
+    x = x + attn
+    h = L.rms_norm(x, bp["ln2"])
+    return x + L.mlp_apply(bp["mlp"], h)
+
+
+def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Dict[str, torch.Tensor], position: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """tokens: (B,) ints; position: (B,) ints (uniform: row 0's position is
+    the step's) on the parameters' device. Returns (logits (B, V) f32,
+    cache): ``cache`` is the same dict, its tensors updated in place with
+    the token's k/v at slot ``position[0]`` (mod the window for a ring) in
+    every layer."""
+    _check_dense(cfg)
+    dtype = L.torch_dtype(cfg.dtype)
+    x = L.embed_apply(params["embed"], tokens[:, None], dtype)
+    ring = bool(cfg.sliding_window)
+    for layer in range(cfg.num_layers):
+        bp = layer_params(params["blocks"], layer)
+        x = _block_decode(bp, x, cfg, position=position,
+                          kc=cache["k"][layer], vc=cache["v"][layer],
+                          ring=ring)
+    hidden = L.rms_norm(x, params["final_norm"])
+    logits = last_token_logits(hidden, head_weight(params, cfg),
+                               final_softcap=cfg.final_softcap)
+    return logits, cache

@@ -4,9 +4,11 @@ Each kernel is held against its plain PyTorch version on the same CUDA
 tensors over shapes the CPU tests cannot reach (every template
 instantiation, ragged edges, strided inputs, float32 and bfloat16; for
 attention also the segmented and positioned modes and their executed-tile
-maps), and the engine on the card, solo and packed, against the same
-engine on the CPU. The module needs no JAX. On a host without CUDA every
-test skips. Run on a GPU machine:
+maps; for flash decoding ragged and empty rows, GQA groups and strided
+cache views), the engine on the card, solo and packed, against the same
+engine on the CPU, and the decode chain on the card against the CPU. The
+module needs no JAX. On a host without CUDA every test skips. Run on a GPU
+machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.core.engine import EngineConfig, PrefillOnlyEngine
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_mlp as fm
 from repro_torch.kernels import rmsnorm as rn
@@ -39,6 +42,9 @@ _spec.loader.exec_module(smoke)
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 DTYPES = [torch.float32, torch.bfloat16]
+# flash decoding averages many slots into small outputs, so its bf16 atol is
+# set well below them; the rtol covers one bf16 ulp
+DEC_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 2e-2)}
 
 
 @pytest.fixture(scope="module")
@@ -54,8 +60,8 @@ def _randn(dev, *shape, std=1.0, dtype=torch.float32, seed=0):
     return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
 
 
-def _close(got, want, dtype):
-    atol, rtol = TOL[dtype]
+def _close(got, want, dtype, tol=TOL):
+    atol, rtol = tol[dtype]
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
@@ -311,3 +317,132 @@ def test_packed_engine_on_the_card_matches_the_cpu_engine(dev):
     for g, c in zip(gpu, cpu):
         for t in (5, 9):
             assert abs(g["scores"][t] - c["scores"][t]) < 2e-2
+
+
+# ---- flash decoding (B6) ------------------------------------------------------
+def _decode_inputs(dev, B, S, H, KV, d, kv_len, dtype, seed=0):
+    q = _randn(dev, B, 1, H, d, dtype=dtype, seed=seed)
+    k = _randn(dev, B, S, KV, d, dtype=dtype, seed=seed + 1)
+    v = _randn(dev, B, S, KV, d, dtype=dtype, seed=seed + 2)
+    n = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    for b, L in enumerate(kv_len):           # dead slots: large, finite
+        k[b, max(L, 0):] = 300.0
+        v[b, max(L, 0):] = -300.0
+    return q, k, v, n
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,KV,d,kv_len,kw", [
+    (2, 96, 4, 4, 64, [32, 96], dict()),                  # G = 1
+    (2, 100, 4, 2, 32, [1, 100], dict()),                 # G = 2, S % 32
+    (3, 4100, 16, 2, 64, [4100, 1, 2049], dict()),        # G = 8
+    (2, 77, 12, 4, 32, [77, 5], dict()),                  # G = 3 (padded to 4)
+    (4, 1000, 8, 8, 64, [1, 999, 1000, 1234], dict()),    # kv_len > S: all live
+    (2, 300, 8, 4, 32, [300, 17], dict(softcap=50.0)),
+    (1, 64, 4, 1, 64, [64], dict(softcap=5.0)),           # G = 4, cap binds
+])
+def test_decode_attention_kernel_matches_plain(dev, B, S, H, KV, d, kv_len,
+                                               kw, dtype):
+    q, k, v, n = _decode_inputs(dev, B, S, H, KV, d, kv_len, dtype)
+    n0 = da.launches
+    got = da.decode_attention(q, k, v, n, **kw)
+    torch.cuda.synchronize()
+    assert da.launches == n0 + 1
+    _close(got, da.decode_attention_plain(q, k, v, n, **kw), dtype, DEC_TOL)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_short_rows_leave_most_splits_empty(dev, dtype):
+    """S = 32,768 with rows of 1 and 1000 live slots: most of the split
+    rule's chunks hold no live slot, and their (m, l) = (-1e30, 0) partials
+    must merge without NaN; a row with kv_len 0 gives 0."""
+    kv_len = [1, 1000, 32768, 0]
+    q, k, v, n = _decode_inputs(dev, 4, 32768, 4, 4, 64, kv_len, dtype)
+    splits, _ = da.split_rule(4 * 4, 32768, da._sm_count(dev.index))
+    assert splits > 8
+    got = da.decode_attention(q, k, v, n)
+    _close(got, da.decode_attention_plain(q, k, v, n), dtype, DEC_TOL)
+    assert not got[3].any()
+
+
+def test_decode_attention_takes_strided_cache_views(dev):
+    """A layer of a stacked cache, a slot prefix of a longer cache and a
+    head slice are read in place; a cache that is not unit-stride over d,
+    or whose rows are not 16-byte aligned, is refused, not copied."""
+    dtype = torch.bfloat16
+    stack = _randn(dev, 3, 2, 80, 6, 64, dtype=dtype)
+    vstack = _randn(dev, 3, 2, 80, 6, 64, dtype=dtype, seed=1)
+    q = _randn(dev, 2, 1, 4, 64, dtype=dtype, seed=2)
+    n = torch.tensor([50, 64], dtype=torch.int32, device=dev)
+    for k, v in ((stack[1, :, :64, 1:5], vstack[1, :, :64, 1:5]),
+                 (stack[2, :, 10:74, 2:6], vstack[0, :, 3:67, :4])):
+        assert not k.is_contiguous()
+        _close(da.decode_attention(q, k, v, n),
+               da.decode_attention_plain(q, k, v, n), dtype, DEC_TOL)
+    n0 = da.launches
+    kt = stack[0, :, :64, :4].transpose(-1, -2).contiguous().transpose(-1, -2)
+    with pytest.raises(ValueError):
+        da.decode_attention(q, kt, vstack[0, :, :64, :4], n)
+    odd = torch.zeros(2 * 64 * 4 * 64 + 1, dtype=dtype, device=dev)[1:]
+    with pytest.raises(ValueError):
+        da.decode_attention(q, odd.view(2, 64, 4, 64),
+                            vstack[0, :, :64, :4], n)
+    assert da.launches == n0
+
+
+def test_decode_attention_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    q = _randn(dev, 2, 1, 4, 48)
+    k = _randn(dev, 2, 16, 4, 48)
+    n = torch.tensor([16, 16], dtype=torch.int32, device=dev)
+    n0 = da.launches
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k, k, n)                  # head_dim 48
+    q = _randn(dev, 2, 1, 16, 64)
+    k = _randn(dev, 2, 16, 1, 64)
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k, k, n)                  # 16 heads per kv
+    k = _randn(dev, 2, 16, 4, 64)
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k, k, n.cpu())            # kv_len on the CPU
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k, k, n[:1])              # kv_len not (B,)
+    assert da.launches == n0
+
+
+@pytest.mark.parametrize("window", [0, 8])
+def test_decode_chain_on_the_card_matches_the_cpu(dev, window):
+    """The reduced model's decode chain (20 steps from an empty cache, ring
+    cache when windowed) on the card against the same chain on the CPU, at
+    float32: logits within 1e-4 (the kernels against their plain versions
+    over four layers), 2L+1/L/L launches per step, caches alike."""
+    from repro_torch.models.model import build
+    cfg = reduce_config(get_config("qwen1.5-0.5b"), hybrid_chunk=0,
+                        dtype="float32", param_dtype="float32",
+                        sliding_window=window)
+    api = build(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gparams = _to(params, dev)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 20)))
+    caches = {"cpu": api.init_cache(2, 24, device="cpu"),
+              "gpu": api.init_cache(2, 24, device=dev)}
+    for t in range(20):
+        pos = torch.full((2,), t, dtype=torch.int32)
+        want, _ = api.decode_step(params, toks[:, t], caches["cpu"], pos)
+        n0 = (rn.launches, da.launches, fm.launches, fa.launches)
+        got, _ = api.decode_step(gparams, toks[:, t].to(dev), caches["gpu"],
+                                 pos.to(dev))
+        torch.cuda.synchronize()
+        used = tuple(a - b for a, b in zip(
+            (rn.launches, da.launches, fm.launches, fa.launches), n0))
+        L_ = cfg.num_layers
+        assert used == (2 * L_ + 1, L_, L_, 0)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    for name in ("k", "v"):
+        torch.testing.assert_close(caches["gpu"][name].cpu(),
+                                   caches["cpu"][name], atol=1e-5, rtol=1e-5)
+
+
+def _to(tree, dev):
+    return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev))
+            for k, v in tree.items()}

@@ -233,7 +233,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         for name in _imports(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
-    code = ("import sys, repro_torch.core.engine, repro_torch.models.params; "
+    code = ("import sys, repro_torch.core.engine, repro_torch.models.params, "
+            "repro_torch.models.model, repro_torch.kernels.decode_attention; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
