@@ -10,13 +10,19 @@ then runs these phases and raises on the first failure:
 
   1. prints the card (``nvidia-smi`` name and power limit) and build time;
   2. holds each kernel against its plain PyTorch version on the card at
-     the main path's shapes, in bf16 (and once in f32), and times kernel,
-     plain version and one library call used only as a yardstick; for
-     flash attention in its three modes: dense, segmented (a packed miss:
-     S=2048 of mixed segments and a padding tail) and positioned (a packed
-     hit: 4 rows over 1024/768/512/1024-token prefixes), where it also
-     holds the kernel's executed-tile map against the plain tile rule
-     (``tile_rule``) and prints the bound reckoned from the live layout;
+     the main path's shapes, in bf16 (the tensor-core kernels) and once in
+     f32 (the CUDA-core kernels), and times kernel, plain version and one
+     library call used only as a yardstick: the fused MLP at T = 16, 128,
+     512 and 2048; flash attention in its three modes: dense (causal
+     S = 512 and 2048, and the hit's 128 queries over 1152 keys),
+     segmented (a packed miss: S=2048 of mixed segments and a padding
+     tail) and positioned (a packed hit: 4 rows over 1024/768/512/1024-
+     token prefixes), where it also holds the kernel's executed-tile map
+     against the plain tile rule (``tile_rule``) at the kernel's tile size
+     and prints the bound reckoned from the live layout. Each bf16 limit
+     is printed beside the kernel's reading against it and the readings
+     of kernels that skip one live key tile or d_ff slice (``limit``
+     lines);
   3. runs full-width 24-layer qwen1.5-0.5b forwards (random weights from a
      seed) through the kernels and through the plain versions —
      ``prefill`` (S=512), ``prefill_packed`` and
@@ -38,7 +44,8 @@ then runs these phases and raises on the first failure:
      weights and requests, launches are 49/24/24 per forward (the packed
      forwards through the segmented and positioned modes); prints the warm
      packed step walls per shape beside the solo walls of the same
-     requests, and traces one warm packed-miss and packed-hit step;
+     requests, and traces one warm packed-miss and packed-hit step (every
+     traced step must name the tensor-core kernels it ran);
   6. drives the dense decode path through ``build(cfg)``: flash decoding
      (B6) against its plain version at the decode path's shape (B=16,
      S=32768, bf16 and f32), a ragged, a GQA and a head_dim-32 softcap
@@ -77,6 +84,21 @@ PROFILE_LEN, POST_LEN = 1030, 100
 # then round once — a few bf16 ulps (2^-8 relative each)
 BF16_TOL = (2e-2, 2e-2)         # |kernel - plain| <= atol + rtol * |plain|
 F32_TOL = (1e-4, 1e-4)
+# The tensor-core kernels' bf16 limits, set from their outputs' scale. Both
+# sides round their f32 result once, so they may differ by one bf16 ulp
+# (at most 2^-7 relative): rtol 1e-2. Attention outputs are averages of
+# unit-variance V rows (|plain| ~0.03-1 at these shapes); the kernel also
+# rounds each p <= 1 to bf16 (2^-9 relative), which moves an output by up
+# to 2^-9 max|v| ~ 1e-2 and typically ~1e-3 where few keys are live, so
+# atol 4e-3. The MLP's outputs have rms ~0.6; both sides round a = silu(g)
+# u once, from f32 sums taken in another order, so a few a values in a
+# million land one ulp apart (2^-7 |a|, |a| up to ~20), each moving its
+# row by ulp(a) |Wd| (measured up to 4.2e-3 at T = 2048): atol 1e-2.
+# Dropping one 64-key tile or one 64-column d_ff slice moves outputs by
+# ~1e-2-1e-1; phase 2 prints each kernel's reading beside the readings of
+# kernels that skip one such tile.
+ATTN_BF16_TOL = (4e-3, 1e-2)
+MLP_BF16_TOL = (1e-2, 1e-2)
 # flash decoding averages thousands of slots, so its outputs are small
 # (|plain| ~0.01 at S = 32768): a fixed 2e-2 would pass a kernel that drops
 # whole chunks. The atol sits far below what a dropped chunk reads and the
@@ -115,6 +137,10 @@ KERNELS = (
 )
 SOURCE = {"rmsnorm": "rmsnorm", "fused_mlp": "fused_mlp",
           "decode_attention": "decode_attention"}
+# the bf16 tensor-core kernels a traced step must name (the f32 CUDA-core
+# kernels are flash_fwd_kernel and fused_mlp_kernel)
+TC_PREFILL = ("flash_fwd_tc_kernel", "mlp_gemm_kernel")
+TC_DECODE = ("mlp_gemm_kernel",)
 
 
 def fail(msg: str) -> None:
@@ -268,43 +294,52 @@ def check_kernels(torch, dev):
         bound_ms=b_ms, bound_by=b_by, shape=f"T={T} D={D} bf16")
     report("rmsnorm", out["rmsnorm"])
 
-    # attention cases: (label, B, Sq, Sk, H, KV, d, kwargs)
+    # attention cases: (label, B, Sq, Sk, H, KV, d, kwargs); the first is
+    # the JSON row, causal_2048 the solo miss's shape
     cases = [
         ("causal", 1, 512, 512, 16, 16, 64, dict()),
+        ("causal_2048", 1, 2048, 2048, 16, 16, 64, dict()),
         ("q_offset", 1, 128, 1152, 16, 16, 64, dict(q_offset=1024)),
         ("gqa_window_softcap_padded", 2, 300, 300, 16, 4, 64,
          dict(window=128, softcap=30.0, kv_valid=250)),
         ("noncausal_d32", 1, 96, 200, 8, 8, 32, dict(causal=False)),
     ]
     for label, B, Sq, Sk, H, KV, d, kw in cases:
-        dtypes = ((torch.float32, F32_TOL), (bf16, BF16_TOL)) \
-            if label == "causal" else ((bf16, BF16_TOL),)
+        dtypes = ((torch.float32, F32_TOL), (bf16, ATTN_BF16_TOL)) \
+            if label == "causal" else ((bf16, ATTN_BF16_TOL),)
         errs = {}
         for dtype, tol in dtypes:
             q = randn(B, Sq, H, d, dtype=dtype)
             k, v = randn(B, Sk, KV, d, dtype=dtype), randn(B, Sk, KV, d,
                                                             dtype=dtype)
-            errs[dtype] = compare(torch, fa.flash_attention(q, k, v, **kw),
-                                  fa.flash_attention_plain(q, k, v, **kw),
-                                  tol, f"flash_attention {label} {dtype}")
+            got = fa.flash_attention(q, k, v, **kw)
+            want = fa.flash_attention_plain(q, k, v, **kw)
+            errs[dtype] = compare(torch, got, want, tol,
+                                  f"flash_attention {label} {dtype}")
         live = fa._live_mask(Sq, Sk, causal=kw.get("causal", True),
                              window=kw.get("window", 0),
                              q_offset=kw.get("q_offset", 0),
                              kv_valid=kw.get("kv_valid"), device=dev)
+        if label in ("causal", "causal_2048", "q_offset"):
+            report_limit(torch, f"flash_attention[{label}]", got, want,
+                         ATTN_BF16_TOL, attention_skips(
+                             torch, fa, q, k, v, live, want, ATTN_BF16_TOL,
+                             softcap=kw.get("softcap", 0.0)))
         pairs = float(live.sum().item()) * B * H
         nbytes = 2 * (2 * B * Sq * H * d + 2 * B * Sk * KV * d)
         b_ms, b_by = bound(chip, 4.0 * d * pairs, nbytes)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        mask = None if label == "causal" else live
+        mask = None if label.startswith("causal") else live
 
         def library(qt=qt, kt=kt, vt=vt, mask=mask):
-            # the causal case uses SDPA's own causal mode; the others give
+            # the causal cases use SDPA's own causal mode; the others give
             # it the live mask (the softcap case has no SDPA counterpart)
             if mask is None:
                 return F.scaled_dot_product_attention(qt, kt, vt,
                                                       is_causal=True)
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
+        splits, chunk = fa.split_rule(B, Sq, H, Sk, fa._sm_count(dev.index))
         row = dict(
             max_abs_err=errs[bf16], f32_err=errs.get(torch.float32),
             ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw)),
@@ -313,31 +348,108 @@ def check_kernels(torch, dev):
             library_ms=(time_ms(torch, library)
                         if not kw.get("softcap") else None),
             bound_ms=b_ms, bound_by=b_by,
-            shape=f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} d={d} {label} bf16")
+            shape=f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} d={d} {label} bf16, "
+                  f"key split {splits}x{chunk} tiles")
         report(f"flash_attention[{label}]", row)
         if label == "causal":
             out["flash_attention"] = row
 
-    # fused MLP at T=512, D=1024, F=2816
-    T, D, Fd = 512, 1024, 2816
-    errs = {}
-    for dtype, tol in ((torch.float32, F32_TOL), (bf16, BF16_TOL)):
-        x = randn(T, D, dtype=dtype)
-        wg, wu, wd = (randn(D, Fd, std=D ** -0.5, dtype=dtype),
-                      randn(D, Fd, std=D ** -0.5, dtype=dtype),
-                      randn(Fd, D, std=Fd ** -0.5, dtype=dtype))
-        errs[dtype] = compare(torch, fm.fused_mlp(x, wg, wu, wd),
-                              fm.fused_mlp_plain(x, wg, wu, wd), tol,
-                              f"fused_mlp {dtype}")
-    b_ms, b_by = bound(chip, 6.0 * T * D * Fd, 2 * (2 * T * D + 3 * D * Fd))
-    out["fused_mlp"] = dict(
-        max_abs_err=errs[bf16], f32_err=errs[torch.float32],
-        ms=time_ms(torch, lambda: fm.fused_mlp(x, wg, wu, wd)),
-        plain_ms=time_ms(torch, lambda: fm.fused_mlp_plain(x, wg, wu, wd)),
-        library_ms=time_ms(torch, lambda: (F.silu(x @ wg) * (x @ wu)) @ wd),
-        bound_ms=b_ms, bound_by=b_by, shape=f"T={T} D={D} F={Fd} bf16")
-    report("fused_mlp", out["fused_mlp"])
+    # fused MLP at qwen1.5-0.5b width (D=1024, F=2816) and the main path's
+    # token counts: a decode step's T=16, a solo hit's 128, the packed
+    # hit's 512 (the JSON row) and a miss's 2048
+    D, Fd = 1024, 2816
+    for T in (512, 16, 128, 2048):
+        errs = {}
+        for dtype, tol in (((torch.float32, F32_TOL), (bf16, MLP_BF16_TOL))
+                           if T == 512 else ((bf16, MLP_BF16_TOL),)):
+            x = randn(T, D, dtype=dtype)
+            wg, wu, wd = (randn(D, Fd, std=D ** -0.5, dtype=dtype),
+                          randn(D, Fd, std=D ** -0.5, dtype=dtype),
+                          randn(Fd, D, std=Fd ** -0.5, dtype=dtype))
+            got = fm.fused_mlp(x, wg, wu, wd)
+            want = fm.fused_mlp_plain(x, wg, wu, wd)
+            errs[dtype] = compare(torch, got, want, tol,
+                                  f"fused_mlp T={T} {dtype}")
+        report_limit(torch, f"fused_mlp[T={T}]", got, want, MLP_BF16_TOL,
+                     mlp_skips(torch, fm, x, wg, wu, wd, want, MLP_BF16_TOL))
+        b_ms, b_by = bound(chip, 6.0 * T * D * Fd,
+                           2 * (2 * T * D + 3 * D * Fd))
+        plan = fm.mlp_plan(T, D, Fd, fm._sm_count(dev.index))
+        row = dict(
+            max_abs_err=errs[bf16], f32_err=errs.get(torch.float32),
+            ms=time_ms(torch, lambda: fm.fused_mlp(x, wg, wu, wd)),
+            plain_ms=time_ms(torch, lambda: fm.fused_mlp_plain(x, wg, wu,
+                                                               wd)),
+            library_ms=time_ms(torch,
+                               lambda: (F.silu(x @ wg) * (x @ wu)) @ wd),
+            bound_ms=b_ms, bound_by=b_by,
+            shape=f"T={T} D={D} F={Fd} bf16, gate/up tile {plan.gate_up}, "
+                  f"down tile {fm.DOWN_TILE} x {plan.splits} d_ff splits")
+        report("fused_mlp" if T == 512 else f"fused_mlp[T={T}]", row)
+        if T == 512:
+            out["fused_mlp"] = row
     return out
+
+
+def reading(torch, got, want, tol) -> float:
+    """max |got - want| / (atol + rtol |want|): a check passes at <= 1."""
+    atol, rtol = tol
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+def attention_skips(torch, fa, q, k, v, live, want, tol, softcap=0.0):
+    """Readings of a kernel that skips one live (query block, key tile)
+    pair of the bf16 kernel's tiles, for every such pair: the plain
+    version's arithmetic (``fa.attend_plain``) over the block's rows with
+    that tile's keys masked, against the plain output. Returns a list of
+    (reading, block, tile)."""
+    bq, bk = fa.tile_shape(q.dtype)
+    Sq, Sk = live.shape[-2:]
+    out = []
+    for i in range(-(-Sq // bq)):
+        rows = slice(i * bq, min((i + 1) * bq, Sq))
+        lv = live[..., rows, :]
+        for j in range(-(-Sk // bk)):
+            if not bool(lv[..., j * bk:(j + 1) * bk].any()):
+                continue
+            m = lv.clone()
+            m[..., j * bk:(j + 1) * bk] = False
+            got = fa.attend_plain(q[:, rows], k, v, m, softcap=softcap)
+            out.append((reading(torch, got, want[:, rows], tol), i, j))
+    return out
+
+
+def mlp_skips(torch, fm, x, wg, wu, wd, want, tol):
+    """Readings of a kernel that drops one BK-wide slice of d_ff (one k
+    tile of the down product), for every slice: the plain version with
+    that slice of a zeroed, against the plain output. Returns a list of
+    (reading, slice, None)."""
+    a = fm.swiglu_plain(x, wg, wu)
+    out = []
+    for j in range(-(-a.shape[1] // fm.BK)):
+        cut = a.clone()
+        cut[:, j * fm.BK:(j + 1) * fm.BK] = 0
+        got = (cut.float() @ wd.float()).to(x.dtype)
+        out.append((reading(torch, got, want, tol), j, None))
+    return out
+
+
+def report_limit(torch, name: str, got, want, tol, skips) -> None:
+    """Print a bf16 limit beside the kernel's reading against it and the
+    readings of kernels that skip one live tile; fail if the kernel's
+    reading is above 1."""
+    sound = reading(torch, got, want, tol)
+    vals = sorted(r for r, _, _ in skips)
+    least = min(skips, key=lambda t: t[0])
+    caught = sum(r > 1 for r in vals)
+    print(f"limit {name}: |kernel - plain| <= {tol[0]} + {tol[1]}|plain| "
+          f"(reading 1); kernel reading {sound:.4f}; one-tile skips read "
+          f"min {least[0]:.4f} (tile {least[1:]}), median "
+          f"{statistics.median(vals):.4f}; {caught} of {len(vals)} skips "
+          f"caught", flush=True)
+    if sound > 1:
+        fail(f"{name}: kernel reading {sound:.4f} above the bf16 limit")
 
 
 def packed_case(dev, slens, S, plens=None, pmax=0):
@@ -461,12 +573,13 @@ def check_packed_kernels(torch, dev):
     for label, Sq, Sk, ids, desc in cases:
         errs = {}
         for dtype, tol in ((torch.float32, F32_TOL),
-                           (torch.bfloat16, BF16_TOL)):
+                           (torch.bfloat16, ATTN_BF16_TOL)):
             q = (torch.randn((1, Sq, H, d), generator=gen, device=dev)
                  ).to(dtype)
             k, v = ((torch.randn((1, Sk, KV, d), generator=gen, device=dev)
                      ).to(dtype) for _ in range(2))
-            tmap = torch.empty((1, -(-Sq // 32), -(-Sk // 32)),
+            bq, bk = fa.tile_shape(dtype)
+            tmap = torch.empty((1, -(-Sq // bq), -(-Sk // bk)),
                                dtype=torch.int32, device=dev)
             got = fa.flash_attention(q, k, v, tile_map=tmap, **ids)
             want = fa.flash_attention_plain(q, k, v, **ids)
@@ -475,18 +588,24 @@ def check_packed_kernels(torch, dev):
             pad = ids["seg_q"][0] < 0
             if pad.any() and got[0, pad].abs().max().item() != 0.0:
                 fail(f"flash_attention {label}: a padding row is not 0")
-        want_map = tile_rule(Sq, Sk, **ids)
-        causal_map = tile_rule(Sq, Sk)              # structural causal rule
-        ran, total = int(tmap.sum()), tmap.numel()
-        print(f"tiles {label}: kernel ran {ran} of {total} 32x32 tiles, "
-              f"plain tile rule {int(want_map.sum())} "
-              f"(causal-only structural rule {int(causal_map.sum())}); "
-              f"maps equal: {bool(torch.equal(tmap, want_map))}", flush=True)
-        if not torch.equal(tmap, want_map):
-            fail(f"flash_attention {label}: executed-tile map differs from "
-                 f"the plain tile rule")
+            # the executed tiles against the plain rule at the kernel's
+            # own tile size (bf16: BLOCK_Q x BLOCK_K; f32: 32 x 32)
+            want_map = tile_rule(Sq, Sk, block_q=bq, block_k=bk, **ids)
+            causal_map = tile_rule(Sq, Sk, block_q=bq, block_k=bk)
+            ran, total = int(tmap.sum()), tmap.numel()
+            print(f"tiles {label} {dtype}: kernel ran {ran} of {total} "
+                  f"{bq}x{bk} tiles, plain tile rule {int(want_map.sum())} "
+                  f"(causal-only structural rule {int(causal_map.sum())}); "
+                  f"maps equal: {bool(torch.equal(tmap, want_map))}",
+                  flush=True)
+            if not torch.equal(tmap, want_map):
+                fail(f"flash_attention {label} {dtype}: executed-tile map "
+                     f"differs from the plain tile rule")
         live = fa._live_mask(Sq, Sk, causal=True, window=0, q_offset=0,
                              kv_valid=None, device=dev, **ids)
+        report_limit(torch, f"flash_attention[{label}]", got, want,
+                     ATTN_BF16_TOL, attention_skips(torch, fa, q, k, v, live,
+                                                    want, ATTN_BF16_TOL))
         pairs = int(live.sum().item()) * H
         nbytes = live_bytes(ids, Sq, H, KV, d)
         b_ms, b_by = bound(chip, 4.0 * d * pairs, nbytes)
@@ -1202,7 +1321,7 @@ def trace_decode_step(torch, api, params, cache, tokens, position) -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     report_trace(torch, prof, f"decode B={tokens.shape[0]} "
-                 f"S={cache['k'].shape[2]}", wall)
+                 f"S={cache['k'].shape[2]}", wall, expect=TC_DECODE)
 
 
 def trace_steps(torch, eng, cfg, rng) -> None:
@@ -1240,24 +1359,36 @@ def trace_one_step(torch, eng, label: str, packed: bool = False) -> None:
                  f"pmax={rec.pmax} n={rec.n_requests}")
     else:
         label = f"{label} S={rec.S} P={rec.pmax}"
-    report_trace(torch, prof, label, rec.wall * 1e3)
+    report_trace(torch, prof, label, rec.wall * 1e3, expect=TC_PREFILL)
 
 
-def report_trace(torch, prof, label: str, wall: float) -> None:
+def report_trace(torch, prof, label: str, wall: float, expect=()) -> None:
     """Print a profiled step's ``trace`` lines: device ms and launches per
     kernel group and of the other device ops, busy ms and idle share of
-    the step's wall (ms), the widest device gap and the top host ops."""
-    groups = (("flash_fwd", "flash_attention"), ("fused_mlp", "fused_mlp"),
+    the step's wall (ms), the widest device gap and the top host ops, and
+    the port's kernels that ran, by name; fail unless every name in
+    ``expect`` ran."""
+    groups = (("flash_fwd", "flash_attention"),
+              ("flash_combine", "flash_attention"),
+              ("fused_mlp", "fused_mlp"), ("mlp_gemm", "fused_mlp"),
+              ("split_sum", "fused_mlp"),
               ("rmsnorm", "rmsnorm"), ("decode_split", "decode_attention"),
               ("decode_combine", "decode_attention"))
-    dev_ms, n = {}, {}
+    dev_ms, n, names = {}, {}, {}
     evs = sorted((e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA),
                  key=lambda e: e.time_range.start)
     for e in evs:
-        g = next((g for k, g in groups if k in e.name), "other")
+        key = next((k for k, _ in groups if k in e.name), None)
+        g = dict(groups).get(key, "other")
         dev_ms[g] = dev_ms.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
         n[g] = n.get(g, 0) + 1
+        if key is not None:
+            short = (e.name.replace("(anonymous namespace)::", "")
+                     .replace("repro_torch::", "").replace("void ", "")
+                     .split("(")[0])
+            names.setdefault(g, {}).setdefault(short, 0)
+            names[g][short] += 1
     busy = sum(dev_ms.values())
     print(f"trace {label}: step wall {wall:.3f} ms "
           f"(profiled), device busy {busy:.3f} ms, idle share "
@@ -1276,6 +1407,14 @@ def report_trace(torch, prof, label: str, wall: float) -> None:
           f"(before {gap[1][:48]}); host self ms (calls): "
           + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.3f} "
                       f"({e.count})" for e in host), flush=True)
+    ran = {k for per in names.values() for k in per}
+    print(f"trace {label}: port kernels (launches): "
+          + "; ".join(f"{g}: " + ", ".join(f"{k} ({c})" for k, c in
+                                           sorted(per.items()))
+                      for g, per in sorted(names.items())), flush=True)
+    missing = [k for k in expect if not any(k in r for r in ran)]
+    if missing:
+        fail(f"trace {label}: {missing} did not run")
 
 
 if __name__ == "__main__":

@@ -19,31 +19,45 @@ flash_attention`` in all three of its modes:
 Causal, sliding window, tanh softcap, GQA (query head h reads kv head
 ``h // (H // KV)``) and a ``kv_valid`` padded-key mask in every mode.
 
-The Hopper kernel (``csrc/flash_attention.cu``) turns the Pallas grid's
-sequential kv axis into a loop inside the block and keeps the f32 query row
-and accumulator of each of its 32 query rows in registers. It skips whole
-32-key tiles that cannot be live, as the Pallas kernel's range tests do
-(structural causal/window range; segment-id ranges that do not meet; no
-``seg_k >= 0``; position ranges that fail the causal or window test), with
-the ranges taken over real tokens only, so a skipped tile is never loaded.
-``tile_map`` (the Pallas ``debug_tile_map``'s counterpart) records which
-tiles the kernel ran; the plain version runs no tiles and has no map. It is
-bound by bytes at the main path's shapes (head_dim 64), but this first
-version computes with f32 FMAs rather than tensor cores. A finite
-``NEG_INF`` and explicit zero weights for masked keys keep fully masked rows
-finite: they return 0 (the Pallas kernel and ``ref.packed_flash_attention_
-ref`` give such padding rows a uniform average instead; see ROADMAP §C).
+The Hopper kernels (``csrc/flash_attention.cu``) turn the Pallas grid's
+sequential kv axis into a loop inside the block, and are chosen by dtype:
+
+- bf16, the model path: FlashAttention-2-style tiles on the tensor cores
+  (``mma.sync`` m16n8k16): 4 warps own ``BLOCK_Q`` = 64 query rows, K/V
+  tiles of ``BLOCK_K`` = 64 keys come through a 2-stage ``cp.async`` ring,
+  the online softmax runs on the f32 accumulator fragments, and p is
+  rounded to bf16 before P.V (the Pallas kernel and the plain version keep
+  it in f32; ROADMAP §C4). Where ``ceil(Sq/64) * H * B`` blocks are fewer
+  than the SMs, ``split_rule`` splits the key tiles into chunks whose f32
+  partials a combine kernel merges. q, k and v rows must be 16-byte
+  aligned (element strides multiples of 8); anything else raises.
+- float32: the tensor cores take f32 only as TF32, so f32 keeps the
+  CUDA-core kernel: one warp per block, one thread per query row of
+  ``F32_BLOCK`` = 32, f32 FMAs.
+
+Both skip whole key tiles that cannot be live, as the Pallas kernel's range
+tests do (structural causal/window range; segment-id ranges that do not
+meet; no ``seg_k >= 0``; position ranges that fail the causal or window
+test), with the ranges taken over real tokens only, so a skipped tile is
+never loaded. ``tile_map`` (the Pallas ``debug_tile_map``'s counterpart)
+records which tiles the kernel ran, at the kernel's tile size
+(``tile_shape(dtype)``); the plain version runs no tiles and has no map.
+Masked keys get no weight, so fully masked rows return 0 (the Pallas
+kernel and ``ref.packed_flash_attention_ref`` give such padding rows a
+uniform average instead; see ROADMAP §C).
 
 Layout at both functions: q (B, Sq, H, d), k/v (B, Sk, KV, d) -> (B, Sq, H,
 d), the model layer's layout (``repro.kernels.ops.flash_attention``'s).
 ``flash_attention`` launches the kernel for CUDA tensors and uses
-``flash_attention_plain`` for CPU tensors; ``mode_launches`` counts kernel
-launches by mode, and ``launches`` is their sum.
+``flash_attention_plain`` for CPU tensors; ``mode_launches`` counts calls
+that launched it, by mode (one per call, the combine included), and
+``launches`` is their sum.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -51,7 +65,8 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64)                # instantiated in csrc/flash_attention.cu
-BLOCK_Q = BLOCK_K = 32              # the kernel's query block and key tile
+BLOCK_Q = BLOCK_K = 64              # the bf16 kernel's query block, key tile
+F32_BLOCK = 32                      # the f32 kernel's query block and key tile
 MODES = ("dense", "segmented", "positioned")
 
 mode_launches = dict.fromkeys(MODES, 0)
@@ -59,8 +74,39 @@ mode_launches = dict.fromkeys(MODES, 0)
 _ARGTYPES = ([ctypes.c_void_p] * 10                          # q, k, v, o,
              # strides, seg_q, seg_k, pos_q, pos_k, tile_map
              + [ctypes.c_int] * 10                           # B..kv_valid
-             + [ctypes.c_float, ctypes.c_float,              # scale, softcap
-                ctypes.c_int, ctypes.c_void_p])              # dtype, stream
+             + [ctypes.c_float, ctypes.c_float]              # scale, softcap
+             + [ctypes.c_int, ctypes.c_int]                  # splits, chunk
+             + [ctypes.c_void_p, ctypes.c_void_p]            # partials
+             + [ctypes.c_int, ctypes.c_void_p])              # dtype, stream
+
+
+def tile_shape(dtype) -> Tuple[int, int]:
+    """(query block, key tile) of the kernel that takes ``dtype``: the
+    granularity of its executed-tile map."""
+    if dtype == torch.float32:
+        return F32_BLOCK, F32_BLOCK
+    return BLOCK_Q, BLOCK_K
+
+
+def split_rule(B: int, Sq: int, H: int, Sk: int,
+               n_sm: int) -> Tuple[int, int]:
+    """(splits, chunk) of the bf16 kernel's key tiles on a card of
+    ``n_sm`` SMs: no split when ``ceil(Sq/BLOCK_Q) * H * B`` blocks fill the
+    SMs; else enough chunks of ``chunk`` whole ``BLOCK_K`` tiles to reach
+    ``n_sm`` blocks; ``splits * chunk >= ceil(Sk/BLOCK_K) > (splits - 1) *
+    chunk``. A rule of shapes: it reads no ids or positions, so the host
+    never waits on the device."""
+    nk = max(1, -(-Sk // BLOCK_K))
+    blocks = -(-Sq // BLOCK_Q) * H * B
+    if blocks == 0 or blocks >= n_sm:
+        return 1, nk
+    chunk = -(-nk // min(nk, -(-n_sm // blocks)))
+    return -(-nk // chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def __getattr__(name: str):
@@ -131,9 +177,21 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain PyTorch version: full softmax over live keys, f32 internals;
     a row with no live key gives 0."""
     B, Sq, H, d = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
+    Sk = k.shape[1]
     _check_modes(B, Sq, Sk, q_offset, seg_q, seg_k, pos_q, pos_k)
-    G = H // KV
+    live = _live_mask(Sq, Sk, causal=causal, window=window,
+                      q_offset=q_offset, kv_valid=kv_valid, device=q.device,
+                      seg_q=seg_q, seg_k=seg_k, pos_q=pos_q, pos_k=pos_k)
+    return attend_plain(q, k, v, live, scale=scale, softcap=softcap)
+
+
+def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 live: torch.Tensor, *, scale: Optional[float] = None,
+                 softcap: float = 0.0) -> torch.Tensor:
+    """The plain version's arithmetic over an explicit (Sq, Sk) or (B, Sq,
+    Sk) live mask (``_live_mask``'s)."""
+    d = q.shape[-1]
+    G = q.shape[2] // k.shape[2]
     if scale is None:
         scale = d ** -0.5
     qf = q.float() * scale
@@ -142,9 +200,6 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
     if softcap:
         s = softcap * torch.tanh(s / softcap)
-    live = _live_mask(Sq, Sk, causal=causal, window=window,
-                      q_offset=q_offset, kv_valid=kv_valid, device=q.device,
-                      seg_q=seg_q, seg_k=seg_k, pos_q=pos_q, pos_k=pos_k)
     if live.dim() == 3:
         live = live[:, None]                             # (B, 1, Sq, Sk)
     s = s.masked_fill(~live, NEG_INF)
@@ -169,17 +224,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``seg_q``/``seg_k`` (B, Sq)/(B, Sk) int segment ids (negative =
     padding) select the segmented mode; ``pos_q``/``pos_k`` (same shapes)
     per-token absolute positions the positioned mode, which requires the
-    segment ids. ``tile_map``, when given, is a (B, ceil(Sq/32),
-    ceil(Sk/32)) int32 buffer on q's CUDA device that receives the kernel's
-    executed-tile map (1 = the tile ran); CPU tensors take no map."""
+    segment ids. ``tile_map``, when given, is a (B, ceil(Sq/bq),
+    ceil(Sk/bk)) int32 buffer on q's CUDA device, ``(bq, bk) =
+    tile_shape(q.dtype)``, that receives the kernel's executed-tile map
+    (1 = the tile ran); CPU tensors take no map."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, Sq, H, d = q.shape
     _, Sk, KV, dk = k.shape
     _check_modes(B, Sq, Sk, q_offset, seg_q, seg_k, pos_q, pos_k)
+    bq, bk = tile_shape(q.dtype)
     if tile_map is not None and tuple(tile_map.shape) != (
-            B, -(-Sq // BLOCK_Q), -(-Sk // BLOCK_K)):
+            B, -(-Sq // bq), -(-Sk // bk)):
         raise ValueError(f"flash_attention: tile_map has shape "
                          f"{tuple(tile_map.shape)}")
     if q.device.type == "cpu":
@@ -209,6 +266,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: tile_map must be contiguous int32")
     code = _build.dtype_code(q.dtype)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+                raise ValueError(
+                    f"flash_attention: {name} strides {t.stride()} must be "
+                    f"multiples of 8 elements from a 16-byte aligned "
+                    f"address (the bf16 kernel copies 16-byte rows)")
     seg_q, seg_k, pos_q, pos_k = (
         None if t is None else t.to(torch.int32).contiguous()
         for t in (seg_q, seg_k, pos_q, pos_k))
@@ -219,6 +283,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    splits, chunk, part_acc, part_ml = 1, max(1, -(-Sk // bk)), None, None
+    if q.dtype == torch.bfloat16:
+        splits, chunk = split_rule(B, Sq, H, Sk, _sm_count(q.device.index))
+    if splits > 1:
+        part_acc = torch.empty((splits, B, H, Sq, d), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((splits, B, H, Sq, 2), dtype=torch.float32,
+                              device=q.device)
     fn = _build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(q.device):
@@ -228,8 +300,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  int(causal), int(window), int(q_offset),
                  Sk if kv_valid is None else int(kv_valid),
                  d ** -0.5 if scale is None else float(scale),
-                 float(softcap), code,
-                 torch.cuda.current_stream().cuda_stream)
+                 float(softcap), splits, chunk, ptr(part_acc), ptr(part_ml),
+                 code, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_attention")
     mode_launches[mode(seg_q, pos_q)] += 1
     return out

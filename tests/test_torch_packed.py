@@ -294,6 +294,45 @@ def test_engine_shaped_tile_rule_matches_pallas(bq, window):
     assert 0 < int(got.sum()) < got.numel()           # some tiles skip
 
 
+@pytest.mark.parametrize("mode,window", [("segmented", 0),
+                                         ("segmented", 40),
+                                         ("positioned", 0),
+                                         ("positioned", 40)])
+def test_tile_rule_at_the_bf16_kernel_tiles_matches_pallas(mode, window):
+    """The rule the bf16 kernel's executed-tile map is held to, at its tile
+    size (``fa.BLOCK_Q`` x ``fa.BLOCK_K``), against the Pallas
+    ``debug_tile_map`` at the same block sizes, on a packed miss with a
+    padding tail and a packed hit shaped like the engine's (padded prefix
+    rows, a miss row): equal wherever neither the query block nor the key
+    tile holds padding; elsewhere a subset of the Pallas tiles that still
+    covers every tile with a live pair."""
+    bq, bk = fa.BLOCK_Q, fa.BLOCK_K
+    rng = np.random.default_rng(6)
+    if mode == "segmented":
+        S = 384
+        ids = _ids((100, 60, 150, 40), S)                 # tail of 34
+        Sk = S
+    else:
+        plens, pmax, S = (128, 0, 192), 192, 256
+        ids = _ids((70, 40, 90), S, plens, pmax)
+        Sk = len(plens) * pmax + S
+    q, k, v = _qkv(rng, S, Sk, 2, 1, 16)
+    _, want = raw_flash(*(jnp.asarray(a).transpose(0, 2, 1, 3)
+                          for a in (q, k, v)), causal=True, window=window,
+                        block_q=bq, block_k=bk, debug_tile_map=True,
+                        **{n: jnp.asarray(a) for n, a in ids.items()})
+    got = smoke.tile_rule(S, Sk, window=window, block_q=bq, block_k=bk,
+                          **{n: torch.from_numpy(a) for n, a in ids.items()})
+    want = torch.from_numpy(np.array(want))
+    pad_rows = torch.from_numpy((ids["seg_q"][0] < 0).reshape(-1, bq).any(1))
+    pad_keys = torch.from_numpy((ids["seg_k"][0] < 0).reshape(-1, bk).any(1))
+    clean = ~pad_rows[:, None] & ~pad_keys[None, :]
+    assert torch.equal(got[0][clean], want[0][clean])
+    assert (got <= want).all()
+    assert (got >= _live_tiles(S, Sk, bq, bk, window=window, **ids)).all()
+    assert 0 < int(got.sum()) < got.numel()           # some tiles skip
+
+
 def test_wrapper_refuses_positions_without_segments():
     q = torch.zeros((1, 8, 2, 16))
     pos = torch.zeros((1, 8), dtype=torch.int32)
