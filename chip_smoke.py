@@ -33,9 +33,18 @@ then runs these phases and raises on the first failure:
      the profile run, then serves requests of two users that each share a
      1030-token profile prefix — misses first, then prefix-cache hits —
      checks that every forward launched each kernel (49, 24 and 24 launches
-     per forward) and that the scores of every hit, at both (S, P) shapes,
-     match a cold engine's; prints the warm step latency per shape, then
-     traces one more miss step and hit step with ``torch.profiler``;
+     per forward, counted through the CUDA graphs' replays) and that the
+     scores of every hit, at both (S, P) shapes, match a cold engine's;
+     each ``step`` line says whether the step captured its shape key's
+     graph or replayed it; prints the warm step latency per shape (median
+     and max, beside the eager forwards' median), traces one more miss step and
+     hit step with ``torch.profiler`` (idle share of the profiled wall and
+     of the unprofiled warm median), and prints the engine's ``graph``
+     lines: each graph's capture ms, pool growth and held bytes, and the
+     wrapper launches of one profiled replay of it, which must equal what
+     its capture counted (the counts the engine adds per replay); the
+     graphs must hold no more than the engine's budget and one graph, and
+     the pool no more than what they hold and one capture's temporaries;
   5. drives the packed path: ``PrefillOnlyEngine()`` (packing on, the
      reference's defaults) runs the profile run, then waves of distinct
      users' misses that co-pack into packed-miss steps and waves of those
@@ -45,8 +54,19 @@ then runs these phases and raises on the first failure:
      forwards through the segmented and positioned modes); prints the warm
      packed step walls per shape beside the solo walls of the same
      requests, and traces one warm packed-miss and packed-hit step (every
-     traced step must name the tensor-core kernels it ran);
-  6. drives the dense decode path through ``build(cfg)``: flash decoding
+     traced step must name the tensor-core kernels it ran); ``graph``
+     lines as in phase 4;
+  6. checks that Algorithm 1 is no longer first come, first served: a
+     solo engine reads its profile fit at lengths up to 2048 and at the
+     default lengths (printing both; one must have a slope and pearson >=
+     0.9), then serves five fresh requests that arrive about 1 ms apart,
+     longest first, and must serve them shortest first; then a solo
+     engine with a 32 MiB graph budget serves hits at 15 prefix lengths
+     of one profile (a new graph each) and three of them again: device
+     memory must grow by no more than the budget, one graph and twice the
+     prefix buffer (itself at most twice the longest prefix), and the
+     recaptured hits must score as before;
+  7. drives the dense decode path through ``build(cfg)``: flash decoding
      (B6) against its plain version at the decode path's shape (B=16,
      S=32768, bf16 and f32), a ragged, a GQA and a head_dim-32 softcap
      case, each timed with an SDPA yardstick and its live-slot bound; then
@@ -58,7 +78,7 @@ then runs these phases and raises on the first failure:
      cache written in place at one slot per layer, peak memory under cache
      + weights + 1 GiB), with the warm step wall, tokens/s and a
      ``torch.profiler`` trace of one warm step;
-  7. prints the ``kernels`` JSON line (every kernel and attention mode),
+  8. prints the ``kernels`` JSON line (every kernel and attention mode),
      then the result line ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when run
@@ -108,6 +128,36 @@ LOGITS_MAX_TOL = 0.15           # full-width logits, std ~0.6 at random init
 LOGITS_MEAN_TOL = 0.02
 TOP_K = 5                       # the plain argmax ranks in the kernel's top 5
 SCORE_GATE = 2e-2               # the repo's engine score gate
+# the engine's profile lengths (the reference's), and the longer ladder
+# ROADMAP C7 step 3 names for a fit that comes out flat
+LONG_LENGTHS = (64, 128, 256, 512, 1024, 2048)
+FIT_PEARSON = 0.9
+# the order phase: fresh requests arriving about 1 ms apart, longest first
+ORDER_LENS = (1900, 1000, 500, 250, 60)
+# warm step wall medians with eager forwards, before they were CUDA graphs
+# (this script on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 5),
+# printed beside this run's
+EAGER_WARM_MS = {("solo", 2048, 0): 40.779, ("solo", 128, 1024): 39.320,
+                ("solo", 64, 1088): 24.592, ("miss",): 82.229,
+                ("hit",): 50.857}
+# graph pool: one pool per engine holds every graph's static outputs and
+# about one forward's temporaries, not one set of temporaries per graph
+# (allocator segments round each capture up, by at most this much)
+POOL_SLACK = 32 << 20
+# the graph memory phase: a solo engine whose compiled forwards may hold
+# GRAPH_BUDGET bytes serves hits at MEMORY_PLENS prefix lengths of one
+# user's profile (a new graph each), then the first few again
+GRAPH_BUDGET = 32 << 20
+MEMORY_PROFILE = 2048
+MEMORY_PLENS = tuple(range(128, 1985, 128))
+# device kernels one wrapper call launches, by name (the bf16 MLP runs a
+# gate/up GEMM and a down GEMM; a split's combine and sum kernels are not
+# counted): one replay of each graph is profiled and read with these
+KERNEL_CALLS = (("rmsnorm_kernel", "rmsnorm", 1),
+                ("flash_fwd", "flash_attention", 1),
+                ("mlp_gemm_kernel", "fused_mlp", 2),
+                ("fused_mlp_kernel", "fused_mlp", 1),
+                ("decode_split", "decode_attention", 1))
 SPIN_CYCLES = 2_000_000         # ~1 ms of device spin ahead of a timed call
 
 # packed-miss kernel shape: segments of mixed lengths, then padding slack
@@ -187,6 +237,8 @@ def main() -> int:
     check_packed_forwards(torch, dev)
     solo = run_engine(torch, dev)
     packed = run_packed_engine(torch, dev)
+    run_order(torch, dev)
+    run_graph_memory(torch, dev)
     decode = run_decode(torch, dev)
     paths = (solo, packed, decode)
     launches = {k: sum(p.get(k, 0) for p in paths)
@@ -759,22 +811,15 @@ def plain_versions():
 
 
 def reset_launches() -> None:
-    mods = kernel_modules()
-    for name in ("rmsnorm", "fused_mlp", "decode_attention"):
-        mods[name].launches = 0
-    modes = mods["flash_attention"].mode_launches
-    for mode in modes:
-        modes[mode] = 0
+    from repro_torch.core import compiled
+    compiled.reset_launches()
 
 
 def read_launches():
     """Launches per kernel (attention: the sum of its modes' counts), and
     of the attention kernel per mode."""
-    mods = kernel_modules()
-    out = {name: m.launches for name, m in mods.items()}
-    for mode, n in mods["flash_attention"].mode_launches.items():
-        out[f"flash_attention[{mode}]"] = n
-    return out
+    from repro_torch.core import compiled
+    return compiled.read_launches()
 
 
 def kernel_launches(launches):
@@ -970,8 +1015,8 @@ def run_engine(torch, dev):
         served.append((toks, res, rec))
         print(f"step n_input={res['n_input']} n_cached={res['n_cached']} "
               f"S={rec.S} P={rec.pmax} wall_ms={rec.wall * 1e3:.3f} "
-              f"first_use={rec.compiled} P(yes)={res['scores'].get(YES)}",
-              flush=True)
+              f"first_use={rec.compiled} graph={graph_use(rec)} "
+              f"P(yes)={res['scores'].get(YES)}", flush=True)
     torch.cuda.synchronize()
     launches = read_launches()               # the main path ends here
     expect = {k: v * eng.forwards for k, v in per_forward(cfg).items()}
@@ -1018,9 +1063,11 @@ def run_engine(torch, dev):
             warm.setdefault((rec.S, rec.pmax), []).append(rec.wall * 1e3)
     for (S, P), walls in sorted(warm.items()):
         print(f"step latency S={S} P={P}: warm wall median "
-              f"{statistics.median(walls):.3f} ms (n={len(walls)})",
-              flush=True)
-    trace_steps(torch, eng, cfg, rng)
+              f"{statistics.median(walls):.3f} ms, max {max(walls):.3f} ms "
+              f"(n={len(walls)}; eager median "
+              f"{EAGER_WARM_MS.get(('solo', S, P), 'n/a')} ms)", flush=True)
+    trace_steps(torch, eng, cfg, rng, warm_medians(eng))
+    report_graphs(torch, eng, "solo engine")
     return launches
 
 
@@ -1069,8 +1116,8 @@ def run_packed_engine(torch, dev):
         for rec in precs:
             print(f"packed step kind={rec.kind} n={rec.n_requests} S={rec.S} "
                   f"Nb={rec.Nb} smax={rec.smax} pmax={rec.pmax} K={rec.K} "
-                  f"wall_ms={rec.wall * 1e3:.3f} first_use={rec.compiled}",
-                  flush=True)
+                  f"wall_ms={rec.wall * 1e3:.3f} first_use={rec.compiled} "
+                  f"graph={graph_use(rec)}", flush=True)
     torch.cuda.synchronize()
     launches = read_launches()               # the packed path ends here
     # the same waves through a solo engine (after the count was read)
@@ -1137,8 +1184,9 @@ def run_packed_engine(torch, dev):
         if walls:
             print(f"packed step latency kind={key[0]} S={key[1]} Nb={key[2]} "
                   f"smax={key[3]} pmax={key[4]}: warm wall median "
-                  f"{statistics.median(walls):.3f} ms (n={len(walls)})",
-                  flush=True)
+                  f"{statistics.median(walls):.3f} ms, max {max(walls):.3f} "
+                  f"ms (n={len(walls)}; eager median of the packed {key[0]} "
+                  f"steps {EAGER_WARM_MS[(key[0],)]} ms)", flush=True)
     for kind in ("miss", "hit"):
         pairs = [(s, p) for s, p, warm in table.get(("wave", kind),
                                                     ([], []))[1] if warm]
@@ -1150,11 +1198,235 @@ def run_packed_engine(torch, dev):
                   f" ms (n={len(pairs)} waves)", flush=True)
 
     # one more warm packed-miss step and packed-hit step, traced
+    medians = warm_medians(eng)
     for kind, reqs in round_waves(1):
         for t in reqs:
             eng.submit(t, allowed_tokens=(YES, NO))
-        trace_one_step(torch, eng, kind, packed=True)
+        trace_one_step(torch, eng, kind, medians, packed=True)
+    report_graphs(torch, eng, "packed engine")
     return launches
+
+
+# ---- the engine's CUDA graphs and Algorithm 1's order ------------------------
+def graph_use(rec) -> str:
+    """Whether a step captured its forward's graph (first use) or replayed
+    it."""
+    return "captured" if rec.compiled else "replayed"
+
+
+def replay_launches(torch, f, tries: int = 3):
+    """Wrapper launches in one replay of compiled forward ``f``'s graph,
+    counted from the device kernels ``torch.profiler`` records
+    (``KERNEL_CALLS``). The profiler now and then drops a trace's first
+    device events (an eager decode trace lost 46 of its 1,402 once), so up
+    to ``tries`` replays are profiled, each alone, until one reads what
+    the capture counted; a graph that lacks a kernel matches in none."""
+    from torch.profiler import ProfilerActivity, profile
+    want = {k: f.launches[k] for k in kernel_modules()}
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            f.graph.replay()
+            torch.cuda.synchronize()
+        counts = dict.fromkeys(kernel_modules(), 0.0)
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for name, wrapper, per_call in KERNEL_CALLS:
+                if name in e.name:
+                    counts[wrapper] += 1 / per_call
+                    break
+        if counts == want:
+            break
+    return counts
+
+
+def report_graphs(torch, eng, label: str) -> None:
+    """``graph`` lines of one engine: each graph's key, capture ms, what
+    its capture added to the engine's pool, what it holds between steps,
+    and the wrapper launches one profiled replay of it made; the totals,
+    the engine's prefix buffer and ``torch.cuda.memory_reserved()`` after
+    the phase. Fails unless every graph replayed, every profiled replay
+    launched each kernel as often as its capture counted (the counts the
+    engine adds per replay), the live graphs hold no more than the
+    engine's budget and one graph, and the pool is shared: at most what
+    the graphs hold plus the largest single capture's growth (one
+    forward's temporaries), with POOL_SLACK of segment rounding a graph."""
+    graphs = eng.graphs()
+    pool = sum(f.pool_bytes for f in graphs)
+    held = [f.held_bytes for f in graphs]
+    biggest = max((f.pool_bytes for f in graphs), default=0)
+    limit = sum(held) + biggest + POOL_SLACK * len(graphs)
+    if not graphs or any(f.graph is None or not f.replays for f in graphs):
+        fail(f"{label}: a forward was not captured or never replayed")
+    for f in graphs:
+        got = replay_launches(torch, f)
+        want = {k: f.launches[k] for k in kernel_modules()}
+        print(f"graph {label}: {f.name}: capture {f.capture_ms:.1f} ms, "
+              f"pool +{f.pool_bytes} bytes, held {f.held_bytes} bytes, "
+              f"replays {f.replays}, profiled replay launched {got} "
+              f"(captured {want})", flush=True)
+        if got != want:
+            fail(f"{label}: a replay of {f.name} launched {got}, its "
+                 f"capture counted {want}")
+    budget = eng.ecfg.graph_memory_bytes
+    print(f"graph {label}: {len(graphs)} graphs live, captured in "
+          f"{sum(f.capture_ms for f in graphs):.1f} ms; held {sum(held)} "
+          f"bytes (budget {budget}); prefix buffer "
+          f"{eng.prefix_store_bytes()} bytes; pool {pool} bytes (limit "
+          f"{limit}: held {sum(held)} + largest capture {biggest} + slack); "
+          f"memory_reserved {torch.cuda.memory_reserved()} bytes",
+          flush=True)
+    if sum(held) > budget + max(held):
+        fail(f"{label}: the graphs hold {sum(held)} bytes, past the budget")
+    if pool > limit:
+        fail(f"{label}: the graphs do not share one pool")
+
+
+def fit_ok(m) -> bool:
+    """A fit with a slope (not clamped to 1e-12) and pearson >= 0.9."""
+    return m.a > 1e-12 and m.pearson_r >= FIT_PEARSON
+
+
+def run_order(torch, dev) -> None:
+    """Algorithm 1 orders requests by length on the card (ROADMAP C7). A
+    solo engine (``max_pack_requests=1``, ``srjf_calibrated``, lambda 0.05;
+    autotune off, so the profile leaves it solo) reads its profile fit at
+    LONG_LENGTHS and at the default lengths, printing both, and keeps the
+    default fit unless only the long one has a slope and pearson >= 0.9.
+    Then five fresh, unrelated requests of ORDER_LENS tokens arrive about
+    1 ms apart, longest first; the engine must serve them shortest first."""
+    import numpy as np
+    from repro_torch.core.engine import EngineConfig, PrefillOnlyEngine
+    cfg, params = model(torch, dev)
+    eng = PrefillOnlyEngine(cfg, params, EngineConfig(
+        max_pack_requests=1, autotune_pack=False), device=dev)
+    fits = {}
+    for name, lengths in (("lengths up to 2048", LONG_LENGTHS),
+                          ("default lengths", None)):
+        t0 = time.perf_counter()
+        if lengths is None:
+            eng.profile()
+        else:
+            eng.profile(lengths)
+        m = eng.jct_model
+        fits[name] = (m.a, m.b, m.pearson_r, fit_ok(m))
+        print(f"profile fit ({name}): {m.a * 1e3:.6f} ms/token + "
+              f"{m.b * 1e3:.3f} ms, pearson {m.pearson_r:.4f}, slope and "
+              f"pearson >= {FIT_PEARSON}: {fit_ok(m)} "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    if not fit_ok(eng.jct_model):
+        if not fits["lengths up to 2048"][3]:
+            fail("the profile fit has no slope, or pearson < "
+                 f"{FIT_PEARSON}, at either ladder: {fits}")
+        eng.profile(LONG_LENGTHS)
+    rng = np.random.default_rng(SEED + 7)
+    ids = {}
+    for n in ORDER_LENS:
+        ids[eng.submit(rng.integers(0, cfg.vocab_size, n).tolist(),
+                       allowed_tokens=(YES, NO))] = n
+        time.sleep(1e-3)
+    served = [ids[i] for i in eng.run_until_drained()]
+    m = eng.jct_model
+    print(f"order: submitted {list(ORDER_LENS)} (about 1 ms apart), served "
+          f"{served}; fit {m.a * 1e3:.6f} ms/token + {m.b * 1e3:.3f} ms "
+          f"(pearson {m.pearson_r:.4f}), lambda {eng.ecfg.lam}; walls "
+          f"{[round(r.wall * 1e3, 3) for r in list(eng.batch_records)[-5:]]}"
+          f" ms", flush=True)
+    if served != sorted(ORDER_LENS):
+        fail(f"Algorithm 1 served {served}, not shortest first")
+    report_graphs(torch, eng, "order engine")
+
+
+def run_graph_memory(torch, dev) -> None:
+    """The compiled forwards' memory stays bounded however many shape keys
+    the traffic brings. A solo engine with ``graph_memory_bytes`` =
+    GRAPH_BUDGET serves one user's MEMORY_PROFILE-token profile, then hits
+    on it at each of MEMORY_PLENS prefix lengths (a new suffix graph each),
+    then the first three again (recaptured if they were dropped). Fails
+    unless graphs were dropped, device memory never grew past what it held
+    after the first hit by more than the budget, one hit graph, twice the
+    prefix buffer (the buffers it grew from, which older graphs may still
+    read, hold less than it) and POOL_SLACK, the prefix buffer holds at
+    most twice the longest prefix, and the repeated hits scored as the
+    first time."""
+    import numpy as np
+    from repro_torch.core.engine import EngineConfig, PrefillOnlyEngine
+    cfg, params = model(torch, dev)
+    rng = np.random.default_rng(SEED + 9)
+    user = rng.integers(0, cfg.vocab_size, MEMORY_PROFILE).tolist()
+    eng = PrefillOnlyEngine(cfg, params, EngineConfig(
+        max_pack_requests=1, cache_capacity_tokens=4 * MEMORY_PROFILE,
+        graph_memory_bytes=GRAPH_BUDGET), device=dev)
+    plens = MEMORY_PLENS + MEMORY_PLENS[:3]
+    reqs = [user] + [user[:p + 40] for p in plens]
+    scores, allocated, keys, biggest = [], [], set(), 0
+    for i, t in enumerate(reqs):
+        rid = eng.submit(t, allowed_tokens=(YES, NO))
+        eng.step()
+        torch.cuda.synchronize()
+        rec, res = eng.batch_records[-1], eng.results[rid]
+        scores.append(res["scores"])
+        allocated.append(torch.cuda.memory_allocated())
+        keys.add((rec.jit_path, rec.jit_key))
+        if i:
+            biggest = max([biggest] + [f.held_bytes for f in eng.graphs()])
+    served = [r.pmax for r in list(eng.batch_records)[1:]]
+    base = allocated[1]
+    grew = max(allocated[1:]) - base
+    store = 2 * eng._prefix_store["k"].nbytes
+    alive = eng.prefix_store_bytes()
+    want_store = 2 * (cfg.num_layers * max(MEMORY_PLENS) * cfg.num_kv_heads
+                      * cfg.head_dim * eng._prefix_store["k"].element_size())
+    diff = max(abs(scores[1 + i][t] - scores[1 + len(MEMORY_PLENS) + i][t])
+               for i in range(3) for t in (YES, NO))
+    limit = GRAPH_BUDGET + biggest + 2 * store + POOL_SLACK
+    print(f"graph memory: {len(keys)} shape keys served, {len(eng.graphs())}"
+          f" graphs live (budget {GRAPH_BUDGET} bytes, held "
+          f"{eng.graph_bytes()}); prefixes {served}; memory_allocated grew "
+          f"{grew} bytes after the first hit (limit {limit}); prefix buffer "
+          f"{store} bytes (longest prefix {want_store} bytes; all buffers "
+          f"alive {alive}); "
+          f"memory_reserved {torch.cuda.memory_reserved()} bytes; repeated "
+          f"hits' max |score diff| {diff:.3e}", flush=True)
+    if served != list(plens) or len(eng.graphs()) >= len(keys):
+        fail("graph memory: the hits did not run at every prefix length, "
+             "or no graph was dropped")
+    if grew > limit:
+        fail(f"graph memory: device memory grew {grew} bytes")
+    if not (want_store <= store <= 2 * want_store and alive < 2 * store):
+        fail(f"graph memory: prefix buffer of {store} bytes")
+    if diff >= SCORE_GATE:
+        fail("graph memory: a recaptured graph scored another way")
+
+
+def graph_traces(vocab: int):
+    """The graph tests' traces (``tests/test_torch_graphs.py`` on the CPU,
+    ``tests/test_torch_cuda.py`` on the card): per path, engine settings and
+    waves of requests, a longer request (or pack) then a shorter one under
+    the same shape key, two steps in a row."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+
+    def toks(n):
+        return rng.integers(0, vocab, n).tolist()
+
+    profiles = [toks(n) for n in (128, 64, 128)]
+    return {
+        "fresh": (dict(max_pack_requests=1, cache_capacity_tokens=0),
+                  [[toks(60)], [toks(40)], [toks(52)]]),
+        "suffix": (dict(max_pack_requests=1),
+                   [[profiles[0] + toks(20)], [profiles[0] + toks(30)],
+                    [profiles[0] + toks(12)]]),
+        "packed_miss": (dict(), [[toks(60), toks(50)], [toks(55), toks(45)],
+                                 [toks(30), toks(25), toks(20)]]),
+        "packed_hit": (dict(), [[p + toks(8) for p in profiles],
+                                [p + toks(s) for p, s in zip(profiles,
+                                                             (20, 12, 30))],
+                                [p + toks(s) for p, s in zip(profiles,
+                                                             (15, 10, 25))]]),
+    }
 
 
 # ---- phase 6: the dense decode path ------------------------------------------
@@ -1324,22 +1596,41 @@ def trace_decode_step(torch, api, params, cache, tokens, position) -> None:
                  f"S={cache['k'].shape[2]}", wall, expect=TC_DECODE)
 
 
-def trace_steps(torch, eng, cfg, rng) -> None:
+def shape_key(rec):
+    return (rec.kind, rec.S, rec.Nb, rec.smax, rec.pmax)
+
+
+def warm_medians(eng):
+    """Median unprofiled wall (ms) of the engine's warm steps, per step
+    kind and shape (``shape_key``)."""
+    walls = {}
+    for rec in eng.batch_records:
+        if not rec.compiled:
+            walls.setdefault(shape_key(rec), []).append(rec.wall * 1e3)
+    return {k: statistics.median(v) for k, v in walls.items()}
+
+
+def trace_steps(torch, eng, cfg, rng, medians) -> None:
     """One more warm miss step and one warm hit step (solo)."""
     user = rng.integers(0, cfg.vocab_size, PROFILE_LEN).tolist()
     for label in ("miss", "hit"):
         eng.submit(user + rng.integers(0, cfg.vocab_size, POST_LEN).tolist(),
                    allowed_tokens=(YES, NO))
-        trace_one_step(torch, eng, label)
+        trace_one_step(torch, eng, label, medians)
 
 
-def trace_one_step(torch, eng, label: str, packed: bool = False) -> None:
+def trace_one_step(torch, eng, label: str, medians,
+                   packed: bool = False) -> None:
     """Run the engine's next step under ``torch.profiler``: device time per
     kernel, of the other device ops (projections, RoPE, embedding, LM head,
     KV copies) and the device's idle share of the step's wall; then drain
     the queue unprofiled. Runs after the main path's launch counts were
     read. ``label`` is the kind the step must be: ``miss``/``hit`` (solo
-    steps) or, with ``packed``, a packed step of that kind."""
+    steps) or, with ``packed``, a packed step of that kind. ``medians``
+    (``warm_medians``) gives the unprofiled warm wall of the step's shape,
+    against which the idle share is also read: the profiler's own tracing
+    of a graph launch adds host time that an unprofiled step does not
+    pay."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1359,10 +1650,13 @@ def trace_one_step(torch, eng, label: str, packed: bool = False) -> None:
                  f"pmax={rec.pmax} n={rec.n_requests}")
     else:
         label = f"{label} S={rec.S} P={rec.pmax}"
-    report_trace(torch, prof, label, rec.wall * 1e3, expect=TC_PREFILL)
+    label += f" ({graph_use(rec)})"
+    report_trace(torch, prof, label, rec.wall * 1e3, expect=TC_PREFILL,
+                 unprofiled=medians.get(shape_key(rec)))
 
 
-def report_trace(torch, prof, label: str, wall: float, expect=()) -> None:
+def report_trace(torch, prof, label: str, wall: float, expect=(),
+                 unprofiled=None) -> None:
     """Print a profiled step's ``trace`` lines: device ms and launches per
     kernel group and of the other device ops, busy ms and idle share of
     the step's wall (ms), the widest device gap and the top host ops, and
@@ -1390,9 +1684,13 @@ def report_trace(torch, prof, label: str, wall: float, expect=()) -> None:
             names.setdefault(g, {}).setdefault(short, 0)
             names[g][short] += 1
     busy = sum(dev_ms.values())
+    against = ("" if unprofiled is None or not busy else
+               f" ({1 - busy / unprofiled:.4f} against the unprofiled warm "
+               f"median {unprofiled:.3f} ms)")
     print(f"trace {label}: step wall {wall:.3f} ms "
           f"(profiled), device busy {busy:.3f} ms, idle share "
-          f"{'not measured' if not busy else f'{1 - busy / wall:.4f}'}; "
+          f"{'not measured' if not busy else f'{1 - busy / wall:.4f}'}"
+          f"{against}; "
           f"device ms (launches) per group: "
           + ", ".join(f"{g} {dev_ms[g]:.3f} ({n[g]})"
                       for g in sorted(dev_ms)), flush=True)

@@ -19,30 +19,46 @@ gathered out of the forward and inserted under its own chain.
 
 Scheduler, JCT models, ``KVLifecycle`` and ``PrefixCache`` are the port's
 own copies of the reference's. Shapes are bucketed so forwards run a
-bounded set of shapes; the first use of a shape key (which includes
-building the CUDA kernels on a fresh checkout) is flagged
-``_step_compiled`` and is not a JCT sample, as a jit compile is not in the
-reference. The DRAM offload tier (``offload=True``) comes with a later
-slice and raises here.
+bounded set of shapes, and each shape key's forward is compiled once, as
+the reference jits it: ``_fresh_fns``, ``_suffix_fns``, ``_packed_fns``
+and ``_packed_hit_fns`` map a key to a ``CompiledForward``
+(``core/compiled.py``), a CUDA graph on the card replayed on every later
+step with that key, and the same forward run eagerly on the same static
+buffers on the CPU. All of an engine's graphs share one memory pool, and
+every hit forward reads its cached prefix from a view of the engine's
+prefix buffer (``_prefix_views``). A graph's key is the shape of every
+input, as ``jax.jit``'s is: as in the reference, a packed step's ``last``
+is padded to ``max_pack_requests`` rows and the hit's prefix rows to the
+pack's Nb, so no input's shape follows the number of packed requests N.
+A step's outputs are consumed (logits copied to the host, kept KV blocks
+copied out) before the next step replays. The compiled forwards' static
+inputs and outputs are held under ``graph_memory_bytes``; the least
+recently used forward goes first.
+The first use of a shape key (warm-up and capture, which includes building
+the CUDA kernels on a fresh checkout) is flagged ``_step_compiled`` and is
+not a JCT sample, as a jit compile is not in the reference. The DRAM
+offload tier (``offload=True``) comes with a later slice and raises here.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.compiled import CompiledForward, side_stream
 from repro_torch.core.jct import LinearProxyJCT, PackedShapeJCT, Sample
 from repro_torch.core.kv_policy import KVLifecycle, bucket as _bucket
 from repro_torch.core.prefix_cache import PrefixCache, token_chain
 from repro_torch.core.scheduler import Request, Scheduler
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import torch_dtype
+from repro_torch.models.layers import PAD_POS, torch_dtype
 from repro_torch.models.params import cast_params
 from repro_torch.runtime.device import DeviceLike, resolve_device
 from repro_torch.runtime.fault_tolerance import NaNGuard
@@ -78,6 +94,10 @@ class EngineConfig:
     shape_pad_discount: float = 0.25   # unfitted-prior rent per padded slot,
                                        # as a fraction of the linear proxy's
                                        # per-computed-token rate
+    graph_memory_bytes: int = 2 << 30  # device bytes the compiled
+                                       # forwards may hold between steps
+                                       # (static inputs and outputs); the
+                                       # least recently used go past it
     offload: bool = False              # DRAM tier: comes with the offload
                                        # slice
 
@@ -126,11 +146,24 @@ class PrefillOnlyEngine:
                                    usable_prefix=self._usable_prefix_len)
         self.queue: List[Request] = []
         self.results: Dict[int, Dict] = {}
-        # shape keys already run once (the reference's per-shape jit caches)
-        self._fresh_keys: set = set()
-        self._suffix_keys: set = set()
-        self._packed_keys: set = set()
-        self._packed_hit_keys: set = set()
+        # the reference's per-shape jit caches: shape key -> compiled forward
+        # (CUDA graphs sharing one pool on the card, eager on the CPU)
+        self._fresh_fns: Dict[Tuple, CompiledForward] = {}
+        self._suffix_fns: Dict[Tuple, CompiledForward] = {}
+        self._packed_fns: Dict[Tuple, CompiledForward] = {}
+        self._packed_hit_fns: Dict[Tuple, CompiledForward] = {}
+        self._fns = {"fresh": self._fresh_fns, "suffix": self._suffix_fns,
+                     "packed_miss": self._packed_fns,
+                     "packed_hit": self._packed_hit_fns}
+        # (path, key) of every live compiled forward, least recently used
+        # first: their held bytes are kept under graph_memory_bytes
+        self._fn_lru: "OrderedDict[Tuple[str, Tuple], None]" = OrderedDict()
+        cuda = self.device.type == "cuda"
+        self._graph_pool = torch.cuda.graph_pool_handle() if cuda else None
+        self._graph_stream = side_stream(self.device.index) if cuda else None
+        # the prefix buffer (k and v, flat) of every new hit forward: each
+        # reads a view of its front, written just before its call
+        self._prefix_store: Optional[Dict[str, torch.Tensor]] = None
         self._last_step_ids: List[int] = []    # all requests served by the
                                                # most recent step()
         self._inflight: List[int] = []         # popped by step(), not yet in
@@ -565,19 +598,18 @@ class PrefillOnlyEngine:
             if prefix_len:
                 self.cache.pin(r.chain, use_blocks)
                 payloads = self.cache.match_payloads(r.chain)[:use_blocks]
-                pk = torch.cat([p[0] for p in payloads], dim=2)
-                pv = torch.cat([p[1] for p in payloads], dim=2)
         if prefix_len == 0:
             logits, new_kv, n_new = self._run_fresh(r.tokens, keep)
             kv_from = 0
         else:
+            # the pinned blocks stay put while the forward reads them
             logits, new_kv, n_new = self._run_suffix(
-                r.tokens[prefix_len:], pk, pv, prefix_len, keep)
+                r.tokens[prefix_len:], payloads, prefix_len, keep)
             kv_from = prefix_len
         # split fresh KV into block payloads and insert (suffix discard:
-        # only up to ``keep`` tokens total). Each block is its own copy, so
-        # an evicted block frees its memory rather than pinning the whole
-        # kept-KV tensor it was sliced from.
+        # only up to ``keep`` tokens total). Each block is its own copy
+        # (``_block_copy``), so an evicted block frees its memory rather
+        # than pinning the whole kept-KV tensor it was sliced from.
         with self.lock:
             if prefix_len:
                 self.cache.unpin(r.chain, use_blocks)
@@ -587,9 +619,7 @@ class PrefillOnlyEngine:
                 payloads_all = self.cache.match_payloads(
                     r.chain)[:use_blocks]
                 for b in range(n_blocks_new):
-                    k_b = new_kv["k"][:, :, b * bs:(b + 1) * bs].clone()
-                    v_b = new_kv["v"][:, :, b * bs:(b + 1) * bs].clone()
-                    payloads_all.append((k_b, v_b))
+                    payloads_all.append(_block_copy(new_kv, b * bs, bs))
                 self.cache.insert(r.chain, kv_from + n_blocks_new * bs,
                                   now=time.perf_counter(),
                                   payloads=payloads_all)
@@ -623,7 +653,6 @@ class PrefillOnlyEngine:
                 prefs.append((plen, payloads, matched))
                 self.hit_tokens += plen
                 self.total_tokens += r.n_input
-        suffixes = [r.n_input - p for r, (p, _, _) in zip(batch, prefs)]
         # realized step shape: the SAME arithmetic formation priced with
         S, Nb, smax, pmax, _ = self._pack_shape(
             [(r.n_input - p, p) for r, (p, _, _) in zip(batch, prefs)])
@@ -640,34 +669,25 @@ class PrefillOnlyEngine:
         else:
             K = _bucket(sum(keeps), self.ecfg.suffix_buckets)
         plens = [p for p, _, _ in prefs]
-        lay = tfm.packed_layout(plens, suffixes, S, rows=Nb, smax=smax,
-                                pmax=pmax)
-        toks = np.zeros((1, S), np.int64)
-        kv_idx = np.zeros((K,), np.int64)
-        off = cum = 0
-        for n, r in enumerate(batch):
-            toks[0, off:off + suffixes[n]] = r.tokens[plens[n]:]
-            kv_idx[cum:cum + keeps[n]] = off + np.arange(keeps[n])
-            off += suffixes[n]
-            cum += keeps[n]
+        host = packed_inputs([r.tokens[p:] for r, p in zip(batch, plens)],
+                             plens, keeps, S=S, Nb=Nb, smax=smax, pmax=pmax,
+                             K=K, n_last=max(len(batch),
+                                             self.ecfg.max_pack_requests))
         # paid forward slots: the flat packed sequence S plus, on the hit
         # path, the reference's padded batched area — Nb*pmax prefix slots
         # and the row slack Nb*smax − S — so padded_slots and BatchRecord
-        # report the reference's numbers (the port's flat layout leaves the
-        # ghost rows out of the buffer)
+        # report the reference's numbers
         self.padded_slots += S + Nb * pmax + (
             max(0, Nb * smax - S) if pmax else 0)
         self._last_shape = {"S": S, "Nb": Nb if pmax else 0, "smax": smax,
                             "pmax": pmax, "K": K}
-        lay = {k: t.to(self.device) for k, t in lay.items()}
-        toks = torch.from_numpy(toks).to(self.device)
-        kv_idx = torch.from_numpy(kv_idx).to(self.device)
         if pmax:
             logits, kv = self._run_packed_hit(
-                S, Nb, smax, pmax, K, toks, lay, kv_idx,
+                S, Nb, smax, pmax, K, host,
                 [(p, pl) for p, pl, _ in prefs])
         else:
-            logits, kv = self._run_packed_miss(S, K, toks, lay, kv_idx)
+            logits, kv = self._run_packed_miss(S, K, host)
+        logits = logits[:len(batch)]          # the padded rows' logits go
         now = time.perf_counter()
         cum = 0
         with self.lock:
@@ -682,76 +702,150 @@ class PrefillOnlyEngine:
                     # each block its own copy: an evicted block frees its
                     # memory rather than pinning the whole gathered KV
                     for b in range(keeps[n] // bs):
-                        lo = cum + b * bs
-                        payloads_all.append(
-                            (kv["k"][:, :, lo:lo + bs].clone(),
-                             kv["v"][:, :, lo:lo + bs].clone()))
+                        payloads_all.append(_block_copy(kv, cum + b * bs, bs))
                     self.cache.insert(r.chain, plen + keeps[n], now=now,
                                       payloads=payloads_all)
                 cum += keeps[n]
         return logits
 
-    def _run_packed_miss(self, S: int, K: int, toks, lay, kv_idx):
-        key = (S, K)
-        self._last_path = ("packed_miss", key)
-        if key not in self._packed_keys:
+    def _compiled(self, path: str, key: Tuple, fn, host,
+                  device=None) -> CompiledForward:
+        """The compiled forward of ``key`` in the ``path``'s jit cache, made
+        on first use, or again when an input's shape changed (jit's rule:
+        the key is the shape of every input): ``fn(**inputs)`` over static
+        inputs of the ``host`` arrays' shapes and the ``device`` tensors.
+        It becomes the most recently used."""
+        self._last_path = (path, key)
+        table, specs = self._fns[path], _specs(host)
+        compiled = table.get(key)
+        if compiled is None or compiled.host_specs != specs:
             self._step_compiled = True
-            self._packed_keys.add(key)
+            if compiled is not None:
+                self._drop(path, key)
+            compiled = table[key] = CompiledForward(
+                fn, f"{path} {key}", specs, device, on=self.device,
+                pool=self._graph_pool, stream=self._graph_stream)
+        self._fn_lru[(path, key)] = None
+        self._fn_lru.move_to_end((path, key))
+        return compiled
+
+    def _run(self, compiled: CompiledForward, host):
+        """Call ``compiled``, then drop the least recently used other
+        forwards while the live ones hold more than ``graph_memory_bytes``
+        (after the call, so the pool always keeps a captured graph)."""
         self.forwards += 1
-        return tfm.prefill_packed(self.params, self.cfg, toks,
-                                  lay["seg_ids"], lay["positions"],
-                                  lay["last_indices"],
-                                  kv_indices=kv_idx if K else None)
+        out = compiled(host)
+        while (self.graph_bytes() > self.ecfg.graph_memory_bytes
+               and len(self._fn_lru) > 1):
+            self._drop(*next(iter(self._fn_lru)))
+        return out
+
+    def _drop(self, path: str, key: Tuple) -> None:
+        """Forget a compiled forward: its graph and static outputs go back
+        to the pool for later captures. A pool left with no captured graph
+        is released; the next capture opens a new one."""
+        del self._fns[path][key]
+        del self._fn_lru[(path, key)]
+        if self._graph_pool is not None and all(
+                f.graph is None for f in self.graphs()):
+            self._graph_pool = torch.cuda.graph_pool_handle()
+
+    def graph_bytes(self) -> int:
+        """Bytes the live compiled forwards hold between steps (the prefix
+        buffers are ``prefix_store_bytes``)."""
+        return sum(f.held_bytes for f in self.graphs())
+
+    def prefix_store_bytes(self) -> int:
+        """Bytes of the prefix buffers alive: the engine's current one, and
+        the smaller ones it grew from while hit forwards made before still
+        read them (together less than the current one)."""
+        views = [f.inputs[n] for f in self.graphs() for n in ("pk", "pv")
+                 if n in f.inputs]
+        views += list((self._prefix_store or {}).values())
+        stores = {v.untyped_storage().data_ptr(): v.untyped_storage().nbytes()
+                  for v in views}
+        return sum(stores.values())
+
+    def _prefix_views(self, rows: int, P: int) -> Dict[str, torch.Tensor]:
+        """Static ``pk``/``pv`` inputs of a new hit forward: (L, rows, P,
+        KV, hd) views of the front of the engine's prefix buffer, which
+        grows to the next power of two of tokens when a forward needs more.
+        A forward keeps the views it was made with (a graph reads fixed
+        addresses), so one made before a growth reads the older buffer
+        until it is dropped."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, rows, P, cfg.num_kv_heads, cfg.head_dim)
+        n = math.prod(shape)
+        store = self._prefix_store
+        if store is None or store["k"].numel() < n:
+            size = (n // (rows * P)) * (1 << (rows * P - 1).bit_length())
+            store = self._prefix_store = {
+                name: torch.zeros(size, dtype=torch_dtype(cfg.dtype),
+                                  device=self.device) for name in "kv"}
+        return {"pk": store["k"][:n].view(shape),
+                "pv": store["v"][:n].view(shape)}
+
+    def _run_packed_miss(self, S: int, K: int, host):
+        """Packed all-miss forward (``prefill_packed``); the key is (S, K),
+        as the reference's: ``last`` is padded to ``max_pack_requests``."""
+        params, cfg = self.params, self.cfg
+
+        def fn(toks, seg_ids, positions, last, kv_idx=None):
+            return tfm.prefill_packed(params, cfg, toks, seg_ids, positions,
+                                      last, kv_indices=kv_idx)
+
+        compiled = self._compiled("packed_miss", (S, K), fn, host)
+        return self._run(compiled, host)
 
     def _run_packed_hit(self, S: int, Nb: int, smax: int, pmax: int, K: int,
-                        toks, lay, kv_idx, rows):
+                        host, rows):
         """Packed prefix-hit forward: assemble the pinned per-block prefix
-        payloads into a (L, N, pmax, KV, hd) buffer (row n = segment n's
-        prefix, zero-padded; the ghost rows Nb − N are left out) and run
-        ``prefill_packed_with_prefix``."""
-        key = (S, Nb, smax, pmax, K)
-        self._last_path = ("packed_hit", key)
-        if key not in self._packed_hit_keys:
-            self._step_compiled = True
-            self._packed_hit_keys.add(key)
-        cfg = self.cfg
-        shape = (cfg.num_layers, len(rows), pmax, cfg.num_kv_heads,
-                 cfg.head_dim)
-        dtype = torch_dtype(cfg.dtype)
-        pk = torch.zeros(shape, dtype=dtype, device=self.device)
-        pv = torch.zeros(shape, dtype=dtype, device=self.device)
-        for n, (plen, parts) in enumerate(rows):
-            if parts:
-                pk[:, n:n + 1, :plen].copy_(
-                    torch.cat([p[0] for p in parts], dim=2))
-                pv[:, n:n + 1, :plen].copy_(
-                    torch.cat([p[1] for p in parts], dim=2))
-        self.forwards += 1
-        return tfm.prefill_packed_with_prefix(
-            self.params, cfg, toks, lay["positions"], lay["last_indices"],
-            {"k": pk, "v": pv}, lay["prefix_pos"], lay["seg_qidx"],
-            kv_indices=kv_idx if K else None)
+        payloads into the (L, Nb, pmax, KV, hd) view of the prefix buffer
+        (row n = segment n's prefix; every slot not filled, the ghost rows
+        Nb − N included, is zeroed) and run ``prefill_packed_with_prefix``."""
+        params, cfg = self.params, self.cfg
 
-    def _tokens(self, tokens: Sequence[int], S: int):
-        toks = torch.zeros((1, S), dtype=torch.long)
-        toks[0, :len(tokens)] = torch.as_tensor(list(tokens), dtype=torch.long)
-        last = torch.tensor([len(tokens) - 1], dtype=torch.long)
-        return toks.to(self.device), last.to(self.device)
+        def fn(toks, positions, last, prefix_pos, seg_qidx, pk, pv,
+               kv_idx=None):
+            return tfm.prefill_packed_with_prefix(
+                params, cfg, toks, positions, last, {"k": pk, "v": pv},
+                prefix_pos, seg_qidx, kv_indices=kv_idx)
+
+        views = self._prefix_views(Nb, pmax)
+        compiled = self._compiled("packed_hit", (S, Nb, smax, pmax, K), fn,
+                                  host, views)
+        for name, part in (("pk", 0), ("pv", 1)):
+            buf = compiled.inputs[name]
+            buf[:, len(rows):].zero_()
+            for n, (plen, parts) in enumerate(rows):
+                if parts:
+                    buf[:, n, :plen].copy_(_cat_blocks(parts, part))
+                if plen < pmax:
+                    buf[:, n, plen:].zero_()
+        return self._run(compiled, host)
+
+    def _tokens(self, tokens: Sequence[int], S: int) -> Dict[str, np.ndarray]:
+        """Host inputs of a solo forward: every slot of the (1, S) tokens
+        written, padding 0, and the last token's index."""
+        toks = np.zeros((1, S), np.int64)
+        toks[0, :len(tokens)] = tokens
+        return {"toks": toks,
+                "last": np.array([len(tokens) - 1], np.int64)}
 
     def _run_fresh(self, tokens: Sequence[int], keep: int = 0):
         S = _bucket(len(tokens), self.ecfg.suffix_buckets)
         # shape-key bucketing of the keep budget is owned by KVLifecycle
         keep_pad = self.kv.keep_pad(keep, S)
-        key = (S, keep_pad)
-        self._last_path = ("fresh", key)
         self._last_shape = {"S": S}
-        if key not in self._fresh_keys:
-            self._step_compiled = True
-            self._fresh_keys.add(key)
-        toks, last = self._tokens(tokens, S)
-        logits, kv = tfm.prefill(self.params, self.cfg, {"tokens": toks},
-                                 kv_keep=keep_pad, last_index=last)
-        self.forwards += 1
+        params, cfg = self.params, self.cfg
+
+        def fn(toks, last):
+            return tfm.prefill(params, cfg, {"tokens": toks},
+                               kv_keep=keep_pad, last_index=last)
+
+        host = self._tokens(tokens, S)
+        compiled = self._compiled("fresh", (S, keep_pad), fn, host)
+        logits, kv = self._run(compiled, host)
         if kv is None:
             return logits, {"k": None, "v": None}, 0
         # kv: (L, 1, keep_pad, KV, hd); valid fresh tokens = len(tokens),
@@ -759,24 +853,35 @@ class PrefillOnlyEngine:
         n_new = min(keep, keep_pad, len(tokens))
         return logits, kv, n_new
 
-    def _run_suffix(self, tokens, pk, pv, prefix_len: int, keep: int):
+    def _run_suffix(self, tokens, payloads, prefix_len: int, keep: int):
+        """Cache-hit forward over ``prefix_len`` tokens of pinned block
+        payloads, concatenated straight into the (L, 1, P, KV, hd) view of
+        the prefix buffer."""
         S = _bucket(len(tokens), self.ecfg.suffix_buckets)
-        P = pk.shape[2]
+        P = prefix_len
         keep_new = self.kv.suffix_keep_new(keep, prefix_len, S)
         keep_pad = self.kv.keep_pad(keep_new, S)
-        key = (S, P, keep_pad)
-        self._last_path = ("suffix", key)
         self._last_shape = {"S": S, "pmax": P}
-        if key not in self._suffix_keys:
-            self._step_compiled = True
-            self._suffix_keys.add(key)
-        toks, last = self._tokens(tokens, S)
-        logits, kv = tfm.prefill_with_prefix(
-            self.params, self.cfg, {"tokens": toks}, {"k": pk, "v": pv},
-            prefix_len=P, kv_keep=P + keep_pad, last_index=last)
-        self.forwards += 1
+        params, cfg = self.params, self.cfg
+
+        def fn(toks, last, pk, pv):
+            return tfm.prefill_with_prefix(
+                params, cfg, {"tokens": toks}, {"k": pk, "v": pv},
+                prefix_len=P, kv_keep=P + keep_pad, last_index=last)
+
+        host = self._tokens(tokens, S)
+        compiled = self._compiled("suffix", (S, P, keep_pad), fn, host,
+                                  self._prefix_views(1, P))
+        for name, part in (("pk", 0), ("pv", 1)):
+            _cat_blocks(payloads, part, out=compiled.inputs[name][:, 0])
+        logits, kv = self._run(compiled, host)
         n_new = min(keep_new, len(tokens))
         return logits, kv, n_new
+
+    def graphs(self) -> List[CompiledForward]:
+        """Every live compiled forward of this engine, in the four paths'
+        order."""
+        return [f for table in self._fns.values() for f in table.values()]
 
     # ---- output --------------------------------------------------------------
     def _score(self, logits: torch.Tensor, r: Request) -> Dict:
@@ -830,3 +935,76 @@ class PrefillOnlyEngine:
             "cache": self.cache.stats(),
             "jct": self.jct_monitor.summary(),
         }
+
+
+_DTYPES = {np.dtype(np.int64): torch.long, np.dtype(np.int32): torch.int32}
+
+
+def _block_copy(kv: Dict, lo: int, bs: int):
+    """One cache block's ``(k, v)`` payload: a copy of kept tokens [lo, lo
+    + bs) of a forward's (L, 1, keep, KV, hd) KV, k and v stacked in one
+    allocation and one launch. The kept KV is a static output of the
+    forward's graph, which the next replay overwrites, so blocks are copied
+    out before the step ends."""
+    kv2 = torch.stack([kv["k"][:, :, lo:lo + bs], kv["v"][:, :, lo:lo + bs]])
+    return kv2[0], kv2[1]
+
+
+def _cat_blocks(payloads: Sequence, part: int,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Block payloads' k (``part`` 0) or v (1), each (L, 1, bs, KV, hd),
+    concatenated along tokens as one (L, P, KV, hd) tensor. The blocks go
+    in as 4-D views: CUDA's ``cat`` copies inputs of more than four
+    dimensions one launch each, and takes up to four in batched launches."""
+    return torch.cat([p[part][:, 0] for p in payloads], dim=1, out=out)
+
+
+def _specs(host: Dict[str, np.ndarray]) -> Dict[str, Tuple]:
+    """(shape, dtype) of each host input."""
+    return {n: (a.shape, _DTYPES[a.dtype]) for n, a in host.items()}
+
+
+def packed_inputs(suffix_tokens: Sequence[Sequence[int]],
+                  plens: Sequence[int], keeps: Sequence[int], *, S: int,
+                  Nb: int, smax: int, pmax: int, K: int, n_last: int
+                  ) -> Dict[str, np.ndarray]:
+    """Host inputs of one packed step at its graph's shapes: segment n's
+    ``suffix_tokens[n]`` back to back in (1, S) (the slack 0), over its
+    cached prefix of ``plens[n]`` tokens, keeping its first ``keeps[n]``
+    fresh tokens' KV (``kv_idx``, padded to K).
+
+    No input's length follows N, as in the reference: ``last`` has
+    ``n_last`` rows (the engine's ``max_pack_requests``, or N if more) and
+    repeats the last segment's index past N (those logits are dropped);
+    on the hit path (``pmax`` > 0) ``prefix_pos`` and ``seg_qidx`` have
+    the pack's Nb rows, the ghost rows ``PAD_POS`` and -1, so their prefix
+    slots carry id -1 and the tile skip passes them by. A
+    miss pack takes ``toks``, ``seg_ids``, ``positions``, ``last`` (and
+    ``kv_idx`` when K); a hit pack ``toks``, ``positions``, ``last``,
+    ``prefix_pos``, ``seg_qidx`` (and ``kv_idx``)."""
+    N = len(suffix_tokens)
+    suffixes = [len(t) for t in suffix_tokens]
+    lay = {k: t.numpy() for k, t in tfm.packed_layout(
+        plens, suffixes, S, rows=Nb, smax=smax, pmax=pmax).items()}
+    toks = np.zeros((1, S), np.int64)
+    kv_idx = np.zeros((K,), np.int64)
+    off = cum = 0
+    for n, t in enumerate(suffix_tokens):
+        toks[0, off:off + suffixes[n]] = t
+        kv_idx[cum:cum + keeps[n]] = off + np.arange(keeps[n])
+        off += suffixes[n]
+        cum += keeps[n]
+    last = np.empty((n_last,), np.int64)
+    last[:N] = lay["last_indices"]
+    last[N:] = last[N - 1]
+    out = {"toks": toks, "positions": lay["positions"], "last": last}
+    if pmax:
+        ppos = np.full((Nb, pmax), PAD_POS, np.int32)
+        ppos[:N] = lay["prefix_pos"]
+        out["prefix_pos"] = ppos
+        out["seg_qidx"] = lay["seg_qidx"]
+    else:
+        out["seg_ids"] = lay["seg_ids"]
+    if K:
+        out["kv_idx"] = kv_idx
+    return out

@@ -249,11 +249,13 @@ def packed_prefix_layout(positions: torch.Tensor, prefix_pos: torch.Tensor,
     R, pmax = prefix_pos.shape
     dev = positions.device
     seg_qidx = seg_qidx.to(device=dev, dtype=torch.long)
-    rows = torch.arange(seg_qidx.shape[0], device=dev)[:, None].expand_as(
-        seg_qidx)
-    real = seg_qidx >= 0
-    seg_q = torch.full((S,), -1, dtype=torch.int32, device=dev)
-    seg_q[seg_qidx[real]] = rows[real].to(torch.int32)
+    rows = torch.arange(seg_qidx.shape[0], device=dev,
+                        dtype=torch.int32)[:, None].expand_as(seg_qidx)
+    # a scatter with no host sync (a CUDA graph captures it): padding
+    # entries (-1) all land in an extra last slot, which is dropped
+    slot = torch.where(seg_qidx >= 0, seg_qidx, S).reshape(-1)
+    seg_q = torch.full((S + 1,), -1, dtype=torch.int32, device=dev)
+    seg_q = seg_q.scatter(0, slot, rows.reshape(-1))[:S]
     ppos = prefix_pos.to(device=dev, dtype=torch.int32)
     seg_p = torch.where(ppos < L.PAD_POS,
                         torch.arange(R, device=dev, dtype=torch.int32)[:, None],

@@ -6,8 +6,10 @@ instantiation, ragged edges, strided inputs, float32 and bfloat16; for
 attention also the segmented and positioned modes and their executed-tile
 maps; for flash decoding ragged and empty rows, GQA groups and strided
 cache views), the engine on the card, solo and packed, against the same
-engine on the CPU, and the decode chain on the card against the CPU. The
-module needs no JAX. On a host without CUDA every test skips. Run on a GPU
+engine on the CPU, the engine's CUDA graphs (a replay's logits and kept KV
+against an eager run of the same forward on the same inputs, bit for bit:
+the same kernels and launch plans, no atomics) and the decode chain on the
+card against the CPU. The module needs no JAX. On a host without CUDA every test skips. Run on a GPU
 machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -20,12 +22,14 @@ the repo's 2e-2 gate.
 """
 import importlib.util
 import pathlib
+import traceback
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config, reduce_config
+from repro_torch.core import compiled
 from repro_torch.core.engine import EngineConfig, PrefillOnlyEngine
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
@@ -501,3 +505,117 @@ def test_decode_chain_on_the_card_matches_the_cpu(dev, window):
 def _to(tree, dev):
     return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev))
             for k, v in tree.items()}
+
+
+# ---- the engine's CUDA graphs ---------------------------------------------------
+@pytest.mark.parametrize("path", ["fresh", "suffix", "packed_miss",
+                                  "packed_hit"])
+def test_graph_replay_equals_the_eager_forward(dev, path):
+    """After every step, the replay's static outputs (logits, kept KV)
+    against the same forward run eagerly on the same static inputs, bit for
+    bit at bf16; every forward was captured with its warm-up under
+    ``set_sync_debug_mode("error")`` (a host sync would have raised), and a
+    warm-up run again under it raises nothing. One profiled replay of each
+    graph launches every kernel as often as its capture counted."""
+    cfg = reduce_config(get_config("qwen1.5-0.5b"), hybrid_chunk=0)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    ecfg, waves = smoke.graph_traces(cfg.vocab_size)[path]
+    eng = PrefillOnlyEngine(cfg, params, EngineConfig(**ecfg), device=dev)
+    tables = {"fresh": eng._fresh_fns, "suffix": eng._suffix_fns,
+              "packed_miss": eng._packed_fns,
+              "packed_hit": eng._packed_hit_fns}
+    now, replayed = 0.0, 0
+    for wave in waves:
+        for t in wave:
+            eng.submit(t, allowed_tokens=(5, 9), now=now)
+            now += 1.0
+        while eng.queue:
+            eng.step()
+            rec = eng.batch_records[-1]
+            f = tables[rec.jit_path][rec.jit_key]
+            replayed += not rec.compiled
+            logits, kv = f.outputs
+            want, want_kv = f.fn(**f.inputs)
+            torch.cuda.synchronize()
+            assert torch.equal(logits, want)
+            if kv is not None and kv["k"] is not None:
+                for name in ("k", "v"):
+                    assert torch.equal(kv[name], want_kv[name])
+    assert replayed >= 1 and any(r.jit_path == path
+                                 for r in eng.batch_records)
+    assert torch.cuda.get_sync_debug_mode() == 0
+    for f in eng.graphs():
+        assert f.graph is not None and f.replays >= 1
+        assert smoke.replay_launches(torch, f) == {
+            k: f.launches[k] for k in smoke.kernel_modules()}
+        f._warm_up()
+    torch.cuda.synchronize()
+
+
+def test_graph_memory_stays_bounded_on_the_card(dev):
+    """Hits at seven prefix lengths of one profile, then the first three
+    again, under a budget that keeps one graph alive: after each step only
+    its own graph lives (the pool keeps a captured graph throughout),
+    device memory after the first hit grows by no more than one graph and
+    twice the prefix buffer (plus the allocator's rounding), and the hits
+    made anew score as the first time, bit for bit."""
+    cfg = reduce_config(get_config("qwen1.5-0.5b"), hybrid_chunk=0)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(5)
+    user = rng.integers(0, cfg.vocab_size, 512).tolist()
+    eng = PrefillOnlyEngine(cfg, params, EngineConfig(
+        max_pack_requests=1, graph_memory_bytes=1), device=dev)
+    plens = [64 * i for i in range(1, 8)]
+    scores, allocated, biggest = [], [], 0
+    for i, t in enumerate([user] + [user[:p + 10] for p in plens + plens[:3]]):
+        rid = eng.submit(t, allowed_tokens=(5, 9))
+        eng.step()
+        torch.cuda.synchronize()
+        scores.append(eng.results[rid]["scores"])
+        allocated.append(torch.cuda.memory_allocated(dev))
+        live, = eng.graphs()
+        assert live.graph is not None
+        if i:
+            biggest = max(biggest, live.held_bytes)
+    recs = list(eng.batch_records)[1:]
+    assert [r.pmax for r in recs] == plens + plens[:3]
+    assert all(r.compiled for r in recs)
+    store = 2 * eng._prefix_store["k"].nbytes
+    assert eng.prefix_store_bytes() < 2 * store
+    limit = biggest + 2 * store + (2 << 20)
+    assert max(allocated[1:]) - allocated[1] <= limit
+    assert scores[1:4] == scores[-3:]
+
+
+def test_a_capture_that_fails_raises_and_runs_nothing_eagerly(dev):
+    """A forward with a host sync (refused in the warm-up) and one with a
+    pageable host copy (refused by the capture) each raise CaptureError
+    naming the key, chained to the error of the op that broke it, on every
+    call, and leave the launch counters as they were."""
+    def synced(x):
+        rn.launches += 1
+        return x * x.sum().item()
+
+    def pageable(x):
+        rn.launches += 1
+        return x + torch.ones(4).to(x.device, non_blocking=True)
+
+    n0 = rn.launches
+    for fn, op in ((synced, "x.sum().item()"), (pageable, "torch.ones(4)")):
+        # a stream of their own: a capture that fails mid-way leaves its
+        # stream's allocations routed to its pool
+        f = compiled.CompiledForward(fn, f"{fn.__name__} (4,)",
+                                     {"x": ((4,), torch.float32)}, on=dev,
+                                     pool=torch.cuda.graph_pool_handle(),
+                                     stream=torch.cuda.Stream(dev))
+        errors = []
+        for _ in range(2):
+            with pytest.raises(compiled.CaptureError) as info:
+                f({"x": np.ones(4, np.float32)})
+            errors.append(info.value)
+        chain = "".join(traceback.format_exception(errors[0]))
+        assert fn.__name__ in str(errors[0]) and op in chain
+        assert errors[1] is errors[0]              # raised again, not retried
+        assert f.graph is None and f.outputs is None
+    assert rn.launches == n0
+    torch.cuda.synchronize()
