@@ -6,10 +6,12 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.granite_3_8b import CONFIG as _granite
 from repro_torch.configs.qwen1_5_0_5b import CONFIG as _qwen
 
 REGISTRY: Dict[str, ModelConfig] = {
     "qwen1.5-0.5b": _qwen,
+    "granite-3-8b": _granite,
 }
 
 

@@ -17,9 +17,11 @@ from typing import Callable, Optional
 
 import torch
 
-# LM-head vocab rows upcast to f32 at a time (bounds the f32 copy of the
-# head weight that last_token_logits makes: 16384 x d_model floats)
-HEAD_CHUNK = 16384
+# bytes of the f32 copy of the head weight that _head_logits makes at a
+# time: 16384 vocab columns at qwen1.5-0.5b's d_model of 1024, 4096 at
+# granite-3-8b's 4096 (a 256 MiB copy there would take a segment of its own
+# in every CUDA graph's capture)
+HEAD_CHUNK_BYTES = 64 << 20
 
 
 def chunked_map(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
@@ -48,13 +50,14 @@ def chunked_map(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
 def _head_logits(last: torch.Tensor, w_head: torch.Tensor,
                  final_softcap: float) -> torch.Tensor:
     """(N, D) rows -> (N, V) f32 logits; the f32 upcast of the head weight
-    is made ``HEAD_CHUNK`` vocab columns at a time."""
+    is made ``HEAD_CHUNK_BYTES`` at a time."""
     last = last.float()
-    V = w_head.shape[1]
+    D, V = w_head.shape
     logits = torch.empty((last.shape[0], V), dtype=torch.float32,
                          device=last.device)
-    for lo in range(0, V, HEAD_CHUNK):
-        hi = min(V, lo + HEAD_CHUNK)
+    step = max(1, HEAD_CHUNK_BYTES // (4 * D))      # vocab columns
+    for lo in range(0, V, step):
+        hi = min(V, lo + step)
         logits[:, lo:hi] = last @ w_head[:, lo:hi].float()
     if final_softcap:
         logits = final_softcap * torch.tanh(logits / final_softcap)
@@ -81,7 +84,7 @@ def last_token_logits(hidden: torch.Tensor, w_head: torch.Tensor,
 
     ``w_head`` is (D, V). Products of model-dtype operands accumulate in f32
     (the reference's ``preferred_element_type=float32``); the f32 upcast of
-    the head weight is made ``HEAD_CHUNK`` vocab columns at a time.
+    the head weight is made ``HEAD_CHUNK_BYTES`` at a time.
     """
     B, S, D = hidden.shape
     if last_index is None:

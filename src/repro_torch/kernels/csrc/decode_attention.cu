@@ -27,6 +27,10 @@
 // a GEMV over its chunk: the kernel is bound by the bytes of the live
 // cache slots, and its design aim is enough 16-byte loads in flight (U
 // key rows per lane group per iteration, several blocks per SM).
+// Head dims 32, 64 and 128 in both dtypes (a key row is D / 8 lanes in bf16,
+// D / 4 in f32; at 128 the block's merge buffer sm_acc is at most 16 KB).
+// At granite-3-8b's G = 4 each key row is read once and used by the 4 query
+// heads of its group, from registers, on CUDA-core FMAs.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -298,6 +302,9 @@ int launch_d(const void* q, const void* k, const void* v, const void* kv_len,
   if (D == 64)
     return launch_g<T, 64>(q, k, v, kv_len, out, ws, st, B, S, KV, G, splits,
                            chunk, scale, softcap, s);
+  if (D == 128)
+    return launch_g<T, 128>(q, k, v, kv_len, out, ws, st, B, S, KV, G,
+                            splits, chunk, scale, softcap, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -68,10 +68,16 @@
 // sums (p = 0 explicitly, or exp2(-inf) = 0 from a finite running max), so
 // fully masked rows (padding queries) return 0 and never NaN.
 //
-// What bounds it on the H100: at the main path's shapes (d = 64, S <= 2K,
-// Sk <= ~5K) the live pairs' operations or the bytes of q, k, v and out,
-// whichever is larger (kernels/flash_attention.py and chip_smoke.py reckon
-// both from the live layout).
+// Head dims: bf16 takes 32, 64 and 128 (qwen1.5-0.5b runs 64, granite-3-8b
+// 128); its shared memory is dynamic (87 KB at 128) and its blocks per SM
+// follow D (flash_fwd_tc_kernel). f32 takes 32 and 64: its one-thread-a-row
+// kernel keeps a row's q and acc in registers, 2 D floats, which at D = 128
+// would pass the 255-register cap (kernels/flash_attention.py width_rule).
+//
+// What bounds it on the H100: at the main path's shapes (d = 64 or 128,
+// S <= 2K, Sk <= ~5K) the live pairs' operations or the bytes of q, k, v
+// and out, whichever is larger (kernels/flash_attention.py and
+// chip_smoke.py reckon both from the live layout).
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
@@ -313,19 +319,40 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// The tensor-core kernel's dynamic shared memory at head_dim D: the query
+// tile, the 2-stage K and V rings (rows padded to DS = D + 8 bf16, so
+// ldmatrix is free of bank conflicts), the ring's segment ids and positions,
+// and the window of skip decisions. 46 KB at D = 64, 87 KB at D = 128 (above
+// the 48 KB of static shared memory, so the launch raises the limit).
 template <int D>
-// 3 blocks (12 warps) per SM: at most 168 registers a thread (4 blocks
-// would cap it at 128 and spill)
-__global__ void __launch_bounds__(TC_THREADS, 3)
+struct TcSmem {
+  static constexpr int DS = D + 8;
+  static constexpr int Q_ELEMS = TQ * DS;
+  static constexpr int KV_ELEMS = TK * DS;    // one stage of K or of V
+  static constexpr int BYTES = (Q_ELEMS + 4 * KV_ELEMS) * 2 +
+                               4 * TK * static_cast<int>(sizeof(int)) + WIN;
+  static_assert((Q_ELEMS + 4 * KV_ELEMS) * 2 % 16 == 0, "aligned id arrays");
+};
+
+// Blocks per SM by head_dim: at D = 64, 3 blocks (12 warps) cap a thread at
+// 168 registers (4 blocks would cap it at 128 and spill); at D = 128 each
+// warp's O accumulator and Q fragments double (64 f32 and 32 packed
+// registers a thread), so 2 blocks (cap 255; it uses 251), which is also
+// what the 87 KB of shared memory allows. D = 32, on no model's path, spilt
+// 4 bytes under the cap of 3 blocks, so it takes 2 as well.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, D == 64 ? 3 : 2)
     flash_fwd_tc_kernel(const Params p) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int DS = D + 8;       // padded smem row: ldmatrix conflict-free
-  __shared__ __align__(16) bf16 Qs[TQ * DS];
-  __shared__ __align__(16) bf16 Ks[2][TK * DS];
-  __shared__ __align__(16) bf16 Vs[2][TK * DS];
-  __shared__ int seg_s[2][TK];
-  __shared__ int pos_s[2][TK];
-  __shared__ unsigned char run_s[WIN];
+  using Sm = TcSmem<D>;
+  constexpr int DS = Sm::DS;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* Ks = Qs + Sm::Q_ELEMS;                // stage st at Ks + st * KV_ELEMS
+  bf16* Vs = Ks + 2 * Sm::KV_ELEMS;
+  int* seg_s = reinterpret_cast<int*>(Vs + 2 * Sm::KV_ELEMS);  // [2][TK]
+  int* pos_s = seg_s + 2 * TK;                                 // [2][TK]
+  unsigned char* run_s = reinterpret_cast<unsigned char*>(pos_s + 2 * TK);
 
   const int nqb = (p.Sq + TQ - 1) / TQ;
   const int qb = nqb - 1 - blockIdx.x % nqb;   // the longest causal rows first
@@ -426,16 +453,16 @@ __global__ void __launch_bounds__(TC_THREADS, 3)
       const int r = kv_r0 + i * KV_RSTEP;
       const bool ok = k0 + r < n_valid;
       const long long kr = k0 + r;
-      cp_async16(smem_u32(&Ks[st][r * DS + kv_dc]), ok ? k_src + kr * p.k_ss : K,
-                 ok);
-      cp_async16(smem_u32(&Vs[st][r * DS + kv_dc]), ok ? v_src + kr * p.v_ss : V,
-                 ok);
+      cp_async16(smem_u32(Ks + st * Sm::KV_ELEMS + r * DS + kv_dc),
+                 ok ? k_src + kr * p.k_ss : K, ok);
+      cp_async16(smem_u32(Vs + st * Sm::KV_ELEMS + r * DS + kv_dc),
+                 ok ? v_src + kr * p.v_ss : V, ok);
     }
     if (segmented && tid < TK) {
       const bool ok = k0 + tid < p.Sk;
       const long long at = (long long)b * p.Sk + (ok ? k0 + tid : 0);
-      cp_async4(smem_u32(&seg_s[st][tid]), p.seg_k + at, ok);
-      if (positioned) cp_async4(smem_u32(&pos_s[st][tid]), p.pos_k + at, ok);
+      cp_async4(smem_u32(seg_s + st * TK + tid), p.seg_k + at, ok);
+      if (positioned) cp_async4(smem_u32(pos_s + st * TK + tid), p.pos_k + at, ok);
     }
   };
 
@@ -495,8 +522,8 @@ __global__ void __launch_bounds__(TC_THREADS, 3)
 
   // S = Q.K^T on tile t, masks, online softmax, O += P.V
   auto compute = [&](int t, int st) {
-    const bf16* Kt = Ks[st];
-    const bf16* Vt = Vs[st];
+    const bf16* Kt = Ks + st * Sm::KV_ELEMS;
+    const bf16* Vt = Vs + st * Sm::KV_ELEMS;
     const int k0 = t * TK;
     float s[TK / 8][4];
 #pragma unroll
@@ -547,8 +574,8 @@ __global__ void __launch_bounds__(TC_THREADS, 3)
           const int i = e >> 1;
           const int c = j * 8 + t4 * 2 + (e & 1);
           // selects, not branches: ids not loaded in this mode are unused
-          const int kp = positioned ? pos_s[st][c] : k0 + c;
-          const int ks = seg_s[st][c];
+          const int kp = positioned ? pos_s[st * TK + c] : k0 + c;
+          const int ks = seg_s[st * TK + c];
           bool ok = qok[i] & (k0 + c < n_valid);
           ok &= !causal | (qpos[i] >= kp);
           ok &= !windowed | ((long long)qpos[i] - kp < p.window);
@@ -711,7 +738,15 @@ template <int D>
 int launch_tc_d(const Params& p, int B, cudaStream_t s) {
   const int nqb = (p.Sq + TQ - 1) / TQ;
   const dim3 grid(nqb * p.splits, p.H, B);
-  flash_fwd_tc_kernel<D><<<grid, TC_THREADS, 0, s>>>(p);
+  constexpr int smem = TcSmem<D>::BYTES;
+  if (smem > 48 * 1024) {
+    // once per instantiation (thread-safe static initialisation)
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+  }
+  flash_fwd_tc_kernel<D><<<grid, TC_THREADS, smem, s>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return static_cast<int>(err);
   const long long n = (long long)B * p.H * p.Sq * (D / 2);
@@ -729,6 +764,8 @@ int launch_tc(const Params& p, int B, int D, cudaStream_t s) {
       return launch_tc_d<32>(p, B, s);
     case 64:
       return launch_tc_d<64>(p, B, s);
+    case 128:
+      return launch_tc_d<128>(p, B, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

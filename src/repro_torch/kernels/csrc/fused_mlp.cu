@@ -20,12 +20,14 @@
 //      atomics: results do not change from run to run).
 // The launch plan (tiles and splits) is kernels/fused_mlp.py's mlp_plan.
 // One departure from the Pallas kernel: a passes through device memory as
-// bf16 (at most 2048 x 2816 x 2 B = 11.5 MB at the config's hybrid chunk,
-// mostly L2-resident); the f32 g and u never do. A fused kernel would need a
-// (BM, D) f32 accumulator per block, 256 KB at BM = 64 and D = 1024, above
-// an SM's 227 KB.
+// bf16 (at the configs' hybrid chunk of 2048 tokens: 2048 x 2816 x 2 B =
+// 11.5 MB at qwen1.5-0.5b, mostly L2-resident; 52 MB at granite-3-8b's d_ff
+// of 12,800); the f32 g and u never do. A fused kernel would need a (BM, D)
+// f32 accumulator per block, 256 KB at BM = 64 and D = 1024, above an SM's
+// 227 KB. The bf16 kernels take any D % 32 == 0 and F % 8 == 0.
 // What bounds it on the H100: the weights' bytes below T ~ 300 (17.3 MB at
-// qwen1.5-0.5b width: 5.2 us), the 6 T D F operations above.
+// qwen1.5-0.5b width: 5.2 us; 315 MB a layer at granite-3-8b: 94 us), the
+// 6 T D F operations above.
 //
 // f32: the tensor cores take f32 only as TF32 (a 10-bit mantissa), so f32
 // inputs keep the CUDA-core kernel: a block owns BT = 8 tokens and ALL D
@@ -190,7 +192,8 @@ int launch_k(const void* x, const void* wg, const void* wu, const void* wd,
 template <typename T>
 int launch(const void* x, const void* wg, const void* wu, const void* wd,
            void* out, int Tn, int D, int F, cudaStream_t s) {
-  // the two widths the port's configs run: D = 128 and D = 1024
+  // D <= 1024 (kernels/fused_mlp.py width_rule): the accumulators hold a
+  // block's 8 tokens x D columns in registers, KMAX columns a thread
   if (D <= NT) return launch_k<T, 1>(x, wg, wu, wd, out, Tn, D, F, s);
   if (D <= 4 * NT) return launch_k<T, 4>(x, wg, wu, wd, out, Tn, D, F, s);
   return static_cast<int>(cudaErrorInvalidValue);

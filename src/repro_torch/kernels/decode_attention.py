@@ -8,7 +8,10 @@ decode_attention``: q (B, 1, H, d), caches (B, S, KV, d), ``kv_len`` (B,)
 ``>= kv_len[b]`` are masked (``kv_len >= S`` makes every slot live); the
 scale is ``d ** -0.5``. Scores, softmax and P.V are f32, with p kept in f32
 as the Pallas kernel keeps it; the result is cast to q's dtype. Any S is
-taken: the cache is neither padded nor copied.
+taken: the cache is neither padded nor copied. Head dims are a rule of
+dtype and width (``width_rule``): 32, 64 and 128 in both dtypes
+(qwen1.5-0.5b's 64, granite-3-8b's 128); any other width raises before a
+launch. At most ``MAX_GROUP`` query heads per kv head.
 
 The Pallas grid (B, KV, splits) walks the splits serially with an (m, l,
 acc) carry. The Hopper kernel (``csrc/decode_attention.cu``) runs the
@@ -36,7 +39,8 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64)                # instantiated in csrc/decode_attention.cu
+# head dims instantiated in csrc/decode_attention.cu, by dtype (width_rule)
+HEAD_DIMS = {torch.bfloat16: (32, 64, 128), torch.float32: (32, 64, 128)}
 MAX_GROUP = 8                       # query heads per kv head
 BLOCKS_PER_SM = 4                   # split rule: blocks to aim for per SM
 CHUNK_ALIGN = 64                    # split rule: slots per chunk, a multiple
@@ -105,6 +109,22 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, d).to(q.dtype)
 
 
+def width_rule(d: int, dtype) -> None:
+    """Raise unless the kernel for ``dtype`` is built for head_dim ``d``: a
+    rule of dtype and width, held before every launch. Both dtypes take d
+    in (32, 64, 128): a warp reads a key row in 16-byte pieces, D / 8
+    lanes a row at bf16 (4 to 16) and D / 4 at f32 (8 to 32)."""
+    dims = HEAD_DIMS.get(dtype)
+    if dims is None:
+        raise TypeError(f"decode_attention: kernels take float32 or "
+                        f"bfloat16, not {dtype}")
+    if d not in dims:
+        raise ValueError(
+            f"decode_attention: head_dim {d} is not built for {dtype} (rule "
+            f"of dtype and width: bfloat16 takes {HEAD_DIMS[torch.bfloat16]}"
+            f", float32 {HEAD_DIMS[torch.float32]})")
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_len: torch.Tensor, *,
                      softcap: float = 0.0) -> torch.Tensor:
@@ -124,8 +144,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          "share one CUDA device")
     B, _, H, d = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: head_dim {d} not in {HEAD_DIMS}")
+    width_rule(d, q.dtype)
     if H // KV > MAX_GROUP:
         raise ValueError(f"decode_attention: {H // KV} query heads per kv "
                          f"head, the kernel takes at most {MAX_GROUP}")

@@ -35,6 +35,13 @@ sequential kv axis into a loop inside the block, and are chosen by dtype:
   CUDA-core kernel: one warp per block, one thread per query row of
   ``F32_BLOCK`` = 32, f32 FMAs.
 
+Head dims are a rule of dtype and width (``width_rule``): bf16 takes 32, 64
+and 128 (qwen1.5-0.5b's 64, granite-3-8b's 128); f32 takes 32 and 64, as
+its one-thread-a-row kernel keeps a query row and its accumulator in
+registers, 2 d floats a thread, past the 255-register cap at d = 128. Any
+other width raises before a launch; the plain version is never taken for a
+CUDA tensor.
+
 Both skip whole key tiles that cannot be live, as the Pallas kernel's range
 tests do (structural causal/window range; segment-id ranges that do not
 meet; no ``seg_k >= 0``; position ranges that fail the causal or window
@@ -64,7 +71,8 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64)                # instantiated in csrc/flash_attention.cu
+# head dims instantiated in csrc/flash_attention.cu, by dtype (width_rule)
+HEAD_DIMS = {torch.bfloat16: (32, 64, 128), torch.float32: (32, 64)}
 BLOCK_Q = BLOCK_K = 64              # the bf16 kernel's query block, key tile
 F32_BLOCK = 32                      # the f32 kernel's query block and key tile
 MODES = ("dense", "segmented", "positioned")
@@ -78,6 +86,24 @@ _ARGTYPES = ([ctypes.c_void_p] * 10                          # q, k, v, o,
              + [ctypes.c_int, ctypes.c_int]                  # splits, chunk
              + [ctypes.c_void_p, ctypes.c_void_p]            # partials
              + [ctypes.c_int, ctypes.c_void_p])              # dtype, stream
+
+
+def width_rule(d: int, dtype) -> None:
+    """Raise unless the kernel for ``dtype`` is built for head_dim ``d``.
+    A rule of dtype and width, held before every launch: bf16 runs the
+    tensor-core kernel at d in (32, 64, 128); f32 runs the CUDA-core kernel
+    at d in (32, 64), since it keeps 2 d f32 values of a query row in one
+    thread's registers (256 at d = 128, past the 255-register cap)."""
+    dims = HEAD_DIMS.get(dtype)
+    if dims is None:
+        raise TypeError(f"flash_attention: kernels take float32 or bfloat16, "
+                        f"not {dtype}")
+    if d not in dims:
+        raise ValueError(
+            f"flash_attention: head_dim {d} is not built for {dtype} (rule "
+            f"of dtype and width: bfloat16 takes {HEAD_DIMS[torch.bfloat16]}"
+            f", float32 {HEAD_DIMS[torch.float32]}, as the f32 kernel keeps "
+            f"a query row and its accumulator in one thread's registers)")
 
 
 def tile_shape(dtype) -> Tuple[int, int]:
@@ -257,10 +283,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[0] != B or dk != d or KV == 0 or H % KV:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
                          f"k/v {tuple(k.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError("flash_attention: q, k, v dtypes differ")
+    width_rule(d, q.dtype)
     if tile_map is not None and (tile_map.dtype != torch.int32
                                  or not tile_map.is_contiguous()):
         raise ValueError("flash_attention: tile_map must be contiguous int32")

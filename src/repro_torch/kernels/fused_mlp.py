@@ -25,6 +25,12 @@ The Hopper kernels (``csrc/fused_mlp.cu``) are chosen by dtype:
   f32 inputs keep the CUDA-core kernel: a block owns 8 tokens and all D
   output columns in registers and walks d_ff in chunks of 32.
 
+Widths are a rule of dtype (``width_rule``): bf16 takes any D % 32 == 0
+(qwen1.5-0.5b's 1024, granite-3-8b's 4096); f32 takes D % 32 == 0 up to
+``F32_MAX_D`` = 1024, the columns its registers hold. Any other width
+raises before a launch; the plain version is never taken for a CUDA
+tensor.
+
 ``fused_mlp`` launches the kernels for CUDA tensors and uses
 ``fused_mlp_plain`` for CPU tensors; ``launches`` counts calls that
 launched them (one per call, whatever the number of internal launches).
@@ -41,7 +47,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
-MAX_D = 1024                    # widest D the kernels take
+F32_MAX_D = 1024                # widest D of the f32 kernel (width_rule)
 BK = 64                         # K elements per pipeline stage (csrc)
 # (BM, BN) tiles instantiated in csrc/fused_mlp.cu: gate/up, widest first,
 # and the down product's one tile
@@ -89,6 +95,22 @@ def mlp_plan(T: int, D: int, F: int, n_sm: int) -> MlpPlan:
     return MlpPlan(gate_up, -(-kt // per), per * BK)
 
 
+def width_rule(D: int, dtype) -> None:
+    """Raise unless a kernel for ``dtype`` takes d_model ``D``. A rule of
+    dtype and width, held before every launch: both kernels need D % 32 ==
+    0; the bf16 tensor-core GEMMs take any such D; the f32 CUDA-core kernel
+    keeps a block's 8 tokens x D output columns in registers, at most 4
+    columns of each token a thread, so it takes D <= ``F32_MAX_D``."""
+    if D <= 0 or D % 32:
+        raise ValueError(f"fused_mlp: D={D} must be a positive multiple of "
+                         f"32")
+    if dtype == torch.float32 and D > F32_MAX_D:
+        raise ValueError(
+            f"fused_mlp: D={D} is past float32's width (rule of dtype and "
+            f"width: the f32 kernel keeps D output columns in registers, "
+            f"D <= {F32_MAX_D}; bfloat16 takes any D % 32 == 0)")
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -123,11 +145,9 @@ def fused_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             or w_down.shape != (Fd, D)):
         raise ValueError(f"fused_mlp: x {tuple(x.shape)} with weights "
                          f"{[tuple(w.shape) for w in ws]}")
-    if D % 32 or D > MAX_D:
-        raise ValueError(f"fused_mlp: D={D} must be a multiple of 32, "
-                         f"<= {MAX_D}")
     if any(w.dtype != x.dtype for w in ws):
         raise ValueError("fused_mlp: x and weight dtypes differ")
+    width_rule(D, x.dtype)
     if not all(w.is_contiguous() for w in ws):
         raise ValueError("fused_mlp: weights must be contiguous")
     code = _build.dtype_code(x.dtype)

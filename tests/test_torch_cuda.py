@@ -123,6 +123,37 @@ def test_flash_attention_takes_the_model_layout_views(dev):
            torch.bfloat16, ATTN_TOL)
 
 
+# granite-3-8b's widths: head_dim 128 with 4 query heads per kv head; bf16
+# only (float32 at head_dim 128 is refused by flash_attention.width_rule)
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,kw", [
+    (1, 130, 130, 32, 8, dict()),                          # causal, ragged
+    (1, 64, 1088, 32, 8, dict(q_offset=1024)),             # a solo hit
+    (2, 100, 100, 4, 1, dict(window=33, softcap=30.0, kv_valid=90)),
+    (1, 40, 120, 8, 2, dict(causal=False)),
+    (1, 8, 8, 4, 1, dict(window=2, kv_valid=3)),           # fully masked rows
+])
+def test_flash_attention_kernel_at_head_dim_128_matches_plain(dev, B, Sq, Sk,
+                                                              H, KV, kw):
+    dtype = torch.bfloat16
+    q = _randn(dev, B, Sq, H, 128, dtype=dtype)
+    k = _randn(dev, B, Sk, KV, 128, dtype=dtype, seed=1)
+    v = _randn(dev, B, Sk, KV, 128, dtype=dtype, seed=2)
+    n0 = fa.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.launches == n0 + 1
+    _close(got, fa.flash_attention_plain(q, k, v, **kw), dtype, ATTN_TOL)
+
+
+def test_flash_attention_f32_at_head_dim_128_raises_its_rule(dev):
+    """float32 at head_dim 128 is refused by the width rule before any
+    launch, naming the rule; nothing falls back to the plain version."""
+    q = _randn(dev, 1, 16, 4, 128)
+    n0 = fa.launches
+    with pytest.raises(ValueError, match="rule of dtype and width"):
+        fa.flash_attention(q, q, q)
+    assert fa.launches == n0
+
+
 def _packed_ids(dev, lens, S, plens=None, pmax=0):
     """(seg_q, seg_k, pos_q, pos_k) of a packed layout as the model makes
     them (``chip_smoke.packed_case``: suffix segments of ``lens`` in S
@@ -140,6 +171,19 @@ def _packed_ids(dev, lens, S, plens=None, pmax=0):
     ((5, 3), 70, 2, 1, 64, dict(softcap=30.0)),            # mostly padding
 ])
 def test_segmented_kernel_matches_plain(dev, lens, S, H, KV, d, kw, dtype):
+    _check_segmented(dev, lens, S, H, KV, d, kw, dtype)
+
+
+@pytest.mark.parametrize("lens,S,H,KV,kw", [
+    ((300, 64, 400, 17, 120), 1000, 32, 8, dict()),        # ragged, tail
+    ((7, 80, 9, 33), 160, 8, 2, dict(window=13)),
+])
+def test_segmented_kernel_at_head_dim_128_matches_plain(dev, lens, S, H, KV,
+                                                        kw):
+    _check_segmented(dev, lens, S, H, KV, 128, kw, torch.bfloat16)
+
+
+def _check_segmented(dev, lens, S, H, KV, d, kw, dtype):
     q = _randn(dev, 1, S, H, d, dtype=dtype)
     k = _randn(dev, 1, S, KV, d, dtype=dtype, seed=1)
     v = _randn(dev, 1, S, KV, d, dtype=dtype, seed=2)
@@ -170,6 +214,21 @@ def test_segmented_kernel_matches_plain(dev, lens, S, H, KV, d, kw, dtype):
 ])
 def test_positioned_kernel_matches_plain(dev, plens, lens, S, pmax, H, KV, d,
                                          kw, dtype):
+    _check_positioned(dev, plens, lens, S, pmax, H, KV, d, kw, dtype)
+
+
+@pytest.mark.parametrize("plens,lens,S,pmax,H,KV,kw", [
+    ((1024, 768, 512, 1024), (128, 96, 160, 128), 512, 1024, 32, 8,
+     dict()),                                      # the chip_smoke shape
+    ((48, 32), (25, 13), 40, 64, 8, 2, dict(window=20)),
+])
+def test_positioned_kernel_at_head_dim_128_matches_plain(dev, plens, lens, S,
+                                                         pmax, H, KV, kw):
+    _check_positioned(dev, plens, lens, S, pmax, H, KV, 128, kw,
+                      torch.bfloat16)
+
+
+def _check_positioned(dev, plens, lens, S, pmax, H, KV, d, kw, dtype):
     Sk = len(plens) * pmax + S
     q = _randn(dev, 1, S, H, d, dtype=dtype)
     k = _randn(dev, 1, Sk, KV, d, dtype=dtype, seed=1)
@@ -243,6 +302,23 @@ def test_fused_mlp_kernel_matches_plain(dev, T, D, F, dtype):
     _close(got, fm.fused_mlp_plain(x, *ws), dtype, MLP_TOL)
 
 
+@pytest.mark.parametrize("T,D,F", [
+    (8, 4096, 12800),     # granite-3-8b: a decode step, d_ff split
+    (128, 4096, 12800),   # a solo hit: 64 down tiles, d_ff split
+    (77, 2048, 8192),     # ragged tokens at another wide D
+])
+def test_fused_mlp_bf16_kernel_at_wide_d_matches_plain(dev, T, D, F):
+    dtype = torch.bfloat16
+    x = _randn(dev, T, D, dtype=dtype)
+    ws = (_randn(dev, D, F, std=D ** -0.5, dtype=dtype, seed=1),
+          _randn(dev, D, F, std=D ** -0.5, dtype=dtype, seed=2),
+          _randn(dev, F, D, std=F ** -0.5, dtype=dtype, seed=3))
+    n0 = fm.launches
+    got = fm.fused_mlp(x, *ws)
+    assert fm.launches == n0 + 1
+    _close(got, fm.fused_mlp_plain(x, *ws), dtype, MLP_TOL)
+
+
 def test_fused_mlp_bf16_takes_views_and_refuses_what_it_cannot_copy(dev):
     """x as a strided view of a wider activation is read (the wrapper makes
     it contiguous); d_ff not a multiple of 8 is refused (the bf16 kernels
@@ -289,7 +365,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         fa.flash_attention(q, q, q)                   # head_dim 48
     q = _randn(dev, 1, 8, 2, 128)
     with pytest.raises(ValueError):
-        fa.flash_attention(q, q, q)                   # head_dim 128
+        fa.flash_attention(q, q, q)                   # head_dim 128 in f32
     x = _randn(dev, 4, 48)
     with pytest.raises(ValueError):
         fm.fused_mlp(x, _randn(dev, 48, 64), _randn(dev, 48, 64),
@@ -297,13 +373,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = _randn(dev, 4, 2048)
     with pytest.raises(ValueError):
         fm.fused_mlp(x, _randn(dev, 2048, 64), _randn(dev, 2048, 64),
-                     _randn(dev, 64, 2048))           # D above 1024
+                     _randn(dev, 64, 2048))           # f32 D above 1024
     with pytest.raises(ValueError):
         rn.rmsnorm(_randn(dev, 4, 64), torch.zeros(64))   # weight on the CPU
 
 
-def test_engine_on_the_card_matches_the_cpu_engine(dev):
-    cfg = reduce_config(get_config("qwen1.5-0.5b"), hybrid_chunk=0)
+def test_engine_on_the_card_matches_the_cpu_engine(dev, cfg=None):
+    cfg = cfg or reduce_config(get_config("qwen1.5-0.5b"), hybrid_chunk=0)
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(0)
     profile = rng.integers(0, cfg.vocab_size, 150).tolist()
@@ -333,10 +409,10 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev):
             assert abs(g["scores"][t] - c["scores"][t]) < 2e-2
 
 
-def test_packed_engine_on_the_card_matches_the_cpu_engine(dev):
+def test_packed_engine_on_the_card_matches_the_cpu_engine(dev, cfg=None):
     """Packed miss and packed hit steps on the card: the same packs, cached
     lengths and scores as on the CPU, and 49/24/24 launches per forward."""
-    cfg = reduce_config(get_config("qwen1.5-0.5b"), hybrid_chunk=0)
+    cfg = cfg or reduce_config(get_config("qwen1.5-0.5b"), hybrid_chunk=0)
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(1)
     profiles = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (80, 64)]
@@ -378,6 +454,18 @@ def test_packed_engine_on_the_card_matches_the_cpu_engine(dev):
             assert abs(g["scores"][t] - c["scores"][t]) < 2e-2
 
 
+@pytest.mark.parametrize("check", [
+    test_engine_on_the_card_matches_the_cpu_engine,
+    test_packed_engine_on_the_card_matches_the_cpu_engine,
+], ids=["solo", "packed"])
+def test_engines_on_the_card_at_head_dim_128(dev, check):
+    """Both engines at granite-3-8b reduced to head_dim 128 (d_model 256,
+    8/2 heads): the tensor-core attention at 128 in all three modes."""
+    check(dev, cfg=reduce_config(get_config("granite-3-8b"), hybrid_chunk=0,
+                                 d_model=256, num_heads=8, num_kv_heads=2,
+                                 head_dim=128))
+
+
 # ---- flash decoding (B6) ------------------------------------------------------
 def _decode_inputs(dev, B, S, H, KV, d, kv_len, dtype, seed=0):
     q = _randn(dev, B, 1, H, d, dtype=dtype, seed=seed)
@@ -399,6 +487,8 @@ def _decode_inputs(dev, B, S, H, KV, d, kv_len, dtype, seed=0):
     (4, 1000, 8, 8, 64, [1, 999, 1000, 1234], dict()),    # kv_len > S: all live
     (2, 300, 8, 4, 32, [300, 17], dict(softcap=50.0)),
     (1, 64, 4, 1, 64, [64], dict(softcap=5.0)),           # G = 4, cap binds
+    (2, 4100, 32, 8, 128, [4100, 2049], dict()),          # granite: d 128, G 4
+    (3, 300, 8, 1, 128, [300, 1, 77], dict(softcap=50.0)),  # d 128, G 8
 ])
 def test_decode_attention_kernel_matches_plain(dev, B, S, H, KV, d, kv_len,
                                                kw, dtype):
@@ -469,15 +559,17 @@ def test_decode_attention_wrapper_raises_on_what_the_kernel_does_not_take(dev):
 
 
 @pytest.mark.parametrize("window", [0, 8])
-def test_decode_chain_on_the_card_matches_the_cpu(dev, window):
+def test_decode_chain_on_the_card_matches_the_cpu(dev, window,
+                                                 arch="qwen1.5-0.5b",
+                                                 widths=None):
     """The reduced model's decode chain (20 steps from an empty cache, ring
     cache when windowed) on the card against the same chain on the CPU, at
     float32: logits within 1e-4 (the kernels against their plain versions
     over four layers), 2L+1/L/L launches per step, caches alike."""
     from repro_torch.models.model import build
-    cfg = reduce_config(get_config("qwen1.5-0.5b"), hybrid_chunk=0,
+    cfg = reduce_config(get_config(arch), hybrid_chunk=0,
                         dtype="float32", param_dtype="float32",
-                        sliding_window=window)
+                        sliding_window=window, **(widths or {}))
     api = build(cfg)
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     gparams = _to(params, dev)
@@ -500,6 +592,14 @@ def test_decode_chain_on_the_card_matches_the_cpu(dev, window):
     for name in ("k", "v"):
         torch.testing.assert_close(caches["gpu"][name].cpu(),
                                    caches["cpu"][name], atol=1e-5, rtol=1e-5)
+
+
+def test_decode_chain_on_the_card_at_head_dim_128(dev):
+    """The chain at granite-3-8b reduced to head_dim 128 (8/2 heads): flash
+    decoding at 128 and 4 query heads per kv head, in float32."""
+    test_decode_chain_on_the_card_matches_the_cpu(
+        dev, 0, arch="granite-3-8b",
+        widths=dict(d_model=256, num_heads=8, num_kv_heads=2, head_dim=128))
 
 
 def _to(tree, dev):

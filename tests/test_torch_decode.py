@@ -5,9 +5,10 @@ mode, through ``repro.kernels.ops.decode_attention``) and to
 ``ref.decode_attention_ref`` at the shapes of ``tests/test_kernels.py``,
 with the dead cache slots filled with large finite values so that a mask
 fault shows. The decode layers, ``init_cache`` and ``decode_step`` are held
-to ``repro.models``' at the reduced qwen1.5-0.5b config on the same
-parameters (the reference tree with its zero leaves made random, carried
-over by ``params_from_numpy``): float32 within 1e-4 (summation order over
+to ``repro.models``' at the reduced qwen1.5-0.5b and granite-3-8b
+configs (the ``arch`` fixture's params; granite has 4 query heads per kv
+head and no qkv bias), on the same parameters (the reference tree with its
+zero leaves made random, carried over by ``params_from_numpy``): float32 within 1e-4 (summation order over
 four layers), bfloat16 within 2e-2 (rounding: the port keeps p in f32 in
 P.V and the MLP's ``silu(g) * u`` in f32, ROADMAP §C2 and §C6). Inputs are
 made with numpy from a seed and fed to both packages.
@@ -78,6 +79,7 @@ def _caches(rng, B, S, KV, d, kv_len):
     (96, 4, 2, 16, 32),
     (64, 4, 4, 32, 64),
     (100, 8, 2, 16, 32),             # ragged cache length
+    (96, 8, 2, 128, 32),             # granite: head_dim 128, G = 4
 ])
 def test_decode_attention_plain_matches_pallas_and_ref(S, H, KV, d, block_s,
                                                        dtype, softcap):
@@ -123,7 +125,8 @@ def test_decode_attention_plain_row_with_no_live_slot_gives_zero():
 
 
 @pytest.mark.parametrize("rows,S", [(256, 32768), (32, 2048), (2, 100),
-                                    (8, 4100), (1, 1), (4096, 64), (6, 0)])
+                                    (8, 4100), (1, 1), (4096, 64), (6, 0),
+                                    (64, 32768)])     # granite: B 8 x KV 8
 def test_split_rule_covers_the_cache(rows, S):
     splits, chunk = da.split_rule(rows, S, 132)
     assert splits >= 1 and chunk % da.CHUNK_ALIGN == 0
@@ -136,11 +139,15 @@ def test_split_rule_covers_the_cache(rows, S):
 
 
 # ---- decode layers -------------------------------------------------------------
-def _configs(window: int = 0, dtype: str = "float32"):
+QWEN = "qwen1.5-0.5b"
+ARCHS = (QWEN, "granite-3-8b")
+
+
+def _configs(arch: str, window: int = 0, dtype: str = "float32"):
     over = dict(hybrid_chunk=0, dtype=dtype, param_dtype=dtype,
                 sliding_window=window)
-    jcfg = j_reduce_config(j_get_config("qwen1.5-0.5b"), **over)
-    tcfg = reduce_config(get_config("qwen1.5-0.5b"), **over)
+    jcfg = j_reduce_config(j_get_config(arch), **over)
+    tcfg = reduce_config(get_config(arch), **over)
     return jcfg, tcfg
 
 
@@ -160,9 +167,14 @@ def _np_tree(jcfg, seed: int = 0):
     return jax.tree_util.tree_map(fill, tree)
 
 
+@pytest.fixture(scope="module", params=ARCHS)
+def arch(request):
+    return request.param
+
+
 @pytest.fixture(scope="module")
-def tree():
-    return _np_tree(_configs()[0])
+def tree(arch):
+    return _np_tree(_configs(arch)[0])
 
 
 @pytest.mark.parametrize("ring,kv_len", [(False, 5), (False, 24), (True, 5),
@@ -183,13 +195,14 @@ def test_decode_attention_layer_matches_reference(ring, kv_len):
 
 @pytest.mark.parametrize("ring,position", [(False, 6), (False, 20), (True, 5),
                                            (True, 13)])
-def test_attention_decode_matches_reference_in_place(tree, ring, position):
+def test_attention_decode_matches_reference_in_place(tree, arch, ring,
+                                                     position):
     """Output and the written cache slot (mod S for a ring: position 13 of an
     8-slot ring writes slot 5; past the end of a 16-slot plain cache,
     position 20 writes slot 15, as the reference clamps) against the
     reference, whose caches come back as new arrays; the port writes into
     the tensors it was given."""
-    jcfg, tcfg = _configs(window=8 if ring else 0)
+    jcfg, tcfg = _configs(arch, window=8 if ring else 0)
     p = jax.tree_util.tree_map(lambda a: a[0], tree["blocks"]["attn"])
     tp = {k: torch.from_numpy(np.array(a)) for k, a in p.items()}
     rng = np.random.default_rng(7)
@@ -219,7 +232,7 @@ def test_attention_decode_matches_reference_in_place(tree, ring, position):
 
 @pytest.mark.parametrize("window,max_len", [(0, 32), (8, 32), (8, 4)])
 def test_init_cache_matches_reference(window, max_len):
-    jcfg, tcfg = _configs(window=window)
+    jcfg, tcfg = _configs(QWEN, window=window)
     want = jtfm.init_cache(jcfg, 3, max_len)
     got = ttfm.init_cache(tcfg, 3, max_len, device="cpu")
     assert sorted(got) == sorted(want) == ["k", "v"]
@@ -230,7 +243,7 @@ def test_init_cache_matches_reference(window, max_len):
 
 
 def test_init_cache_defaults_to_cuda():
-    api = build(_configs()[1])
+    api = build(_configs(QWEN)[1])
     if torch.cuda.is_available():
         assert api.init_cache(1, 8)["k"].device.type == "cuda"
     else:
@@ -239,19 +252,19 @@ def test_init_cache_defaults_to_cuda():
 
 
 # ---- decode_step -----------------------------------------------------------------
-def _models(tree, window: int, dtype: str = "float32"):
-    jcfg, tcfg = _configs(window=window, dtype=dtype)
+def _models(tree, arch: str, window: int, dtype: str = "float32"):
+    jcfg, tcfg = _configs(arch, window=window, dtype=dtype)
     japi, tapi = j_build(jcfg), build(tcfg)
     jparams = jax.tree_util.tree_map(jnp.asarray, tree)
     tparams = params_from_numpy(tree, tcfg, device="cpu")
     return jcfg, tcfg, japi, tapi, jparams, tparams
 
 
-def test_decode_step_from_prefill_cache_matches_reference(tree):
+def test_decode_step_from_prefill_cache_matches_reference(tree, arch):
     """prefill(S) fills a cache, decode of token S matches the reference's
     decode and the port's own prefill(S + 1) (the twin of
     ``tests/test_model_consistency.py``'s dense check, at 1e-4)."""
-    jcfg, tcfg, japi, tapi, jparams, tparams = _models(tree, 0)
+    jcfg, tcfg, japi, tapi, jparams, tparams = _models(tree, arch, 0)
     S, S_max = 31, 64
     toks = np.random.default_rng(3).integers(0, tcfg.vocab_size, (1, S + 1))
     _, jkv = japi.prefill(jparams, {"tokens": jnp.asarray(toks[:, :S])},
@@ -272,10 +285,11 @@ def test_decode_step_from_prefill_cache_matches_reference(tree):
     np.testing.assert_allclose(_np(tlog), _np(full), **F32)
 
 
-def _chains(tree, window: int, dtype: str):
+def _chains(tree, arch: str, window: int, dtype: str):
     """A STEPS-step decode chain from an empty cache, B = 2, through both
     packages: per-step logits and the final caches."""
-    jcfg, tcfg, japi, tapi, jparams, tparams = _models(tree, window, dtype)
+    jcfg, tcfg, japi, tapi, jparams, tparams = _models(tree, arch, window,
+                                                       dtype)
     toks = np.random.default_rng(11).integers(0, tcfg.vocab_size, (2, STEPS))
     jdec = jax.jit(japi.decode_step)
     jcache = japi.init_cache(2, STEPS + 4)
@@ -293,12 +307,13 @@ def _chains(tree, window: int, dtype: str):
 
 
 @pytest.mark.parametrize("window", [0, 8])
-def test_decode_chain_matches_reference(tree, window):
+def test_decode_chain_matches_reference(tree, arch, window):
     """20 steps from an empty cache (a ring of 8 slots wraps twice): every
     step's logits and the final caches within 1e-4 of the reference; no
     kernel launches on the CPU."""
     n0 = (rn.launches, fa.launches, fm.launches, da.launches)
-    _, _, _, jlogs, tlogs, jcache, cache = _chains(tree, window, "float32")
+    _, _, _, jlogs, tlogs, jcache, cache = _chains(tree, arch, window,
+                                                   "float32")
     assert (rn.launches, fa.launches, fm.launches, da.launches) == n0
     for t, (got, want) in enumerate(zip(tlogs, jlogs)):
         np.testing.assert_allclose(got, want, err_msg=f"step {t}", **F32)
@@ -308,17 +323,18 @@ def test_decode_chain_matches_reference(tree, window):
 
 
 @pytest.mark.parametrize("window", [0, 8])
-def test_decode_chain_bf16_matches_reference(tree, window):
-    _, _, _, jlogs, tlogs, _, _ = _chains(tree, window, "bfloat16")
+def test_decode_chain_bf16_matches_reference(tree, arch, window):
+    _, _, _, jlogs, tlogs, _, _ = _chains(tree, arch, window, "bfloat16")
     for t, (got, want) in enumerate(zip(tlogs, jlogs)):
         np.testing.assert_allclose(got, want, err_msg=f"step {t}", **BF16)
 
 
 @pytest.mark.parametrize("window", [0, 8])
-def test_decode_chain_matches_own_prefill(tree, window):
+def test_decode_chain_matches_own_prefill(tree, arch, window):
     """Each step's logits equal the port's prefill of the prefix up to that
     token (sliding-window attention in prefill, a ring cache in decode)."""
-    toks, tapi, tparams, _, tlogs, _, _ = _chains(tree, window, "float32")
+    toks, tapi, tparams, _, tlogs, _, _ = _chains(tree, arch, window,
+                                                  "float32")
     tt = torch.from_numpy(toks)
     for t in range(STEPS):
         want, _ = tapi.prefill(tparams, {"tokens": tt[:, :t + 1]})
@@ -326,8 +342,8 @@ def test_decode_chain_matches_own_prefill(tree, window):
                                    **F32)
 
 
-def test_decode_step_updates_the_cache_in_place(tree):
-    _, tcfg, _, tapi, _, tparams = _models(tree, 0)
+def test_decode_step_updates_the_cache_in_place(tree, arch):
+    _, tcfg, _, tapi, _, tparams = _models(tree, arch, 0)
     cache = tapi.init_cache(2, 12, device="cpu")
     g = torch.Generator().manual_seed(0)
     for n in ("k", "v"):
@@ -346,7 +362,7 @@ def test_decode_step_updates_the_cache_in_place(tree):
 
 
 def test_build_fields_and_refusals():
-    _, tcfg = _configs()
+    _, tcfg = _configs(QWEN)
     api = build(tcfg)
     assert api.cfg is tcfg and api.defs() == param_defs(tcfg)
     for name in ("prefill", "decode_step", "init_cache"):
@@ -359,10 +375,10 @@ def test_build_fields_and_refusals():
             build(dataclasses.replace(tcfg, **over))
 
 
-def test_build_casts_parameters_to_the_config_dtype(tree):
+def test_build_casts_parameters_to_the_config_dtype(tree, arch):
     """f32 parameters into a bf16 config: the API casts them, as the
     reference's ``build`` does, and the result is that of bf16 parameters."""
-    _, tcfg = _configs(dtype="bfloat16")
+    _, tcfg = _configs(arch, dtype="bfloat16")
     api = build(tcfg)
     p32 = params_from_numpy(tree, dataclasses.replace(tcfg, dtype="float32"),
                             device="cpu")

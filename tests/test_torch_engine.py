@@ -1,9 +1,11 @@
 """The port's engine (solo path: cache miss and prefix-cache hit) against the
 JAX package's, plus the port's package rules.
 
-The engines run the reduced qwen1.5-0.5b config in bfloat16 on bridged
-weights; scores are held to the repo's 2e-2 engine gate (the same gate
-``tests/test_engine.py`` holds hit scores to against a cold engine).
+The engines run the reduced qwen1.5-0.5b and granite-3-8b configs (the
+``setup`` fixture's params; granite has 4 query heads per kv head and no
+qkv bias) in bfloat16 on bridged weights; scores are held to the repo's
+2e-2 engine gate (the same gate ``tests/test_engine.py`` holds hit scores
+to against a cold engine).
 """
 import ast
 import os
@@ -36,12 +38,13 @@ from repro_torch.runtime.device import resolve_device
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SCORE_GATE = 2e-2
 YES, NO = 5, 9
+ARCHS = ("qwen1.5-0.5b", "granite-3-8b")
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = j_reduce_config(j_get_config("qwen1.5-0.5b"), hybrid_chunk=0)
-    tcfg = reduce_config(get_config("qwen1.5-0.5b"), hybrid_chunk=0)
+@pytest.fixture(scope="module", params=ARCHS)
+def setup(request):
+    jcfg = j_reduce_config(j_get_config(request.param), hybrid_chunk=0)
+    tcfg = reduce_config(get_config(request.param), hybrid_chunk=0)
     jparams = materialize(jax.random.PRNGKey(0), build(jcfg).defs(),
                           jnp.float32)
     tree = jax.tree_util.tree_map(np.asarray, jparams)

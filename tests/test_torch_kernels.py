@@ -19,6 +19,7 @@ import torch
 
 from repro.kernels import ops
 from repro.models import layers as jl
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_mlp as fm
 from repro_torch.kernels import rmsnorm as rn
@@ -47,7 +48,8 @@ def _tol(dtype: str):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T,D", [(64, 128), (37, 96), (8, 1024)])
+@pytest.mark.parametrize("T,D", [(64, 128), (37, 96), (8, 1024),
+                                 (16, 4096)])           # granite's d_model
 def test_rmsnorm_plain_matches_pallas(T, D, dtype):
     rng = np.random.default_rng(0)
     x = rng.standard_normal((T, D)).astype(np.float32)
@@ -72,6 +74,8 @@ def test_rmsnorm_plain_matches_pallas(T, D, dtype):
     (33, 33, 2, 1, 8, True, 7, 30.0),        # everything at once
     (40, 70, 4, 2, 16, False, 0, 0.0),       # non-causal, padded Sk
     (48, 48, 4, 1, 32, False, 0, 20.0),      # non-causal, GQA, softcap
+    (64, 64, 8, 2, 128, True, 0, 0.0),       # granite: head_dim 128, G = 4
+    (70, 70, 8, 2, 128, True, 13, 30.0),     # head_dim 128, SWA, softcap
 ])
 def test_flash_attention_plain_matches_pallas(Sq, Sk, H, KV, d, causal,
                                               window, softcap, dtype):
@@ -129,6 +133,7 @@ def test_attention_fully_masked_rows_are_zero():
     (64, 32, 96),
     (100, 64, 150),      # ragged T and F (F not a multiple of a 32 chunk)
     (16, 128, 352),      # 352 = 11 x 32, as 2816 = 11 x 256 at full width
+    (8, 512, 400),       # wider D; 400 = 12800 / 32, granite's d_ff / 32
 ])
 def test_fused_mlp_plain_matches_pallas(T, D, F, dtype):
     rng = np.random.default_rng(4)
@@ -184,6 +189,55 @@ def test_cpu_tensors_never_launch_and_other_devices_raise():
     q = torch.empty(1, 4, 2, 32, device="meta")
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("d,dtype,built", [
+    (32, torch.bfloat16, True), (64, torch.bfloat16, True),
+    (128, torch.bfloat16, True), (96, torch.bfloat16, False),
+    (256, torch.bfloat16, False), (32, torch.float32, True),
+    (64, torch.float32, True), (128, torch.float32, False),
+])
+def test_flash_attention_width_rule(d, dtype, built):
+    """The head dims each dtype's kernel is built for: a rule of dtype and
+    width that raises, naming the rule, before any launch."""
+    if built:
+        fa.width_rule(d, dtype)
+        return
+    with pytest.raises(ValueError, match="rule of dtype and width"):
+        fa.width_rule(d, dtype)
+
+
+@pytest.mark.parametrize("D,dtype,built", [
+    (4096, torch.bfloat16, True), (1024, torch.bfloat16, True),
+    (1024, torch.float32, True), (96, torch.float32, True),
+    (2048, torch.float32, False), (4096, torch.float32, False),
+    (48, torch.bfloat16, False), (0, torch.bfloat16, False),
+])
+def test_fused_mlp_width_rule(D, dtype, built):
+    """bf16 takes any D % 32 == 0; f32 at most F32_MAX_D (its register
+    accumulators); past it the error names the rule."""
+    if built:
+        fm.width_rule(D, dtype)
+        return
+    match = ("rule of dtype and width" if D % 32 == 0 and D > 0
+             else "multiple of 32")
+    with pytest.raises(ValueError, match=match):
+        fm.width_rule(D, dtype)
+
+
+@pytest.mark.parametrize("d,dtype,built", [
+    (32, torch.bfloat16, True), (128, torch.bfloat16, True),
+    (128, torch.float32, True), (64, torch.float32, True),
+    (96, torch.bfloat16, False), (256, torch.float32, False),
+])
+def test_decode_attention_width_rule(d, dtype, built):
+    """Flash decoding is built for head dims 32, 64 and 128 in both dtypes;
+    any other width raises, naming the rule, before any launch."""
+    if built:
+        da.width_rule(d, dtype)
+        return
+    with pytest.raises(ValueError, match="rule of dtype and width"):
+        da.width_rule(d, dtype)
 
 
 def test_constants_match_reference():

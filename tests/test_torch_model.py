@@ -4,9 +4,11 @@ Both sides get the same parameters: the reference tree from
 ``repro.runtime.sharding.materialize``, with its zero-initialized norms and
 biases overwritten by seeded random values (so the ``(1 + w)`` scale and the
 qkv bias are exercised), carried to the port by ``params_from_numpy``.
-Forwards are compared in float32 at the reduced qwen1.5-0.5b config: logits
-and kept KV within 1e-4 (different summation orders over a 4-layer model
-with O(1) activations).
+Forwards are compared in float32 at the reduced qwen1.5-0.5b config, at
+the reduced granite-3-8b config (grouped-query attention: 4 query heads per
+kv head, no qkv bias) and at granite reduced to head_dim 128 (d_model 256,
+8/2 heads): logits and kept KV within 1e-4 (different summation orders over
+a 4-layer model with O(1) activations).
 """
 import dataclasses
 
@@ -31,12 +33,16 @@ from repro_torch.models import transformer as ttfm
 from repro_torch.models.params import init_params, params_from_numpy
 
 TOL = dict(atol=1e-4, rtol=1e-4)
+ARCHS = ("qwen1.5-0.5b", "granite-3-8b")
+# granite's head_dim, 4 query heads per kv head, at a CPU-test width
+HD128 = dict(d_model=256, num_heads=8, num_kv_heads=2, head_dim=128)
 
 
-def _configs(chunk: int):
-    over = dict(hybrid_chunk=chunk, dtype="float32", param_dtype="float32")
-    jcfg = j_reduce_config(j_get_config("qwen1.5-0.5b"), **over)
-    tcfg = reduce_config(get_config("qwen1.5-0.5b"), **over)
+def _configs(chunk: int, arch: str = "qwen1.5-0.5b", **widths):
+    over = dict(hybrid_chunk=chunk, dtype="float32", param_dtype="float32",
+                **widths)
+    jcfg = j_reduce_config(j_get_config(arch), **over)
+    tcfg = reduce_config(get_config(arch), **over)
     return jcfg, tcfg
 
 
@@ -61,9 +67,13 @@ def _np(x) -> np.ndarray:
     return np.asarray(x, np.float32)
 
 
-@pytest.fixture(scope="module", params=[0, 16], ids=["chunk0", "chunk16"])
+@pytest.fixture(scope="module", params=[
+    (0, "qwen1.5-0.5b", {}), (16, "qwen1.5-0.5b", {}),
+    (16, "granite-3-8b", {}), (0, "granite-3-8b", HD128)],
+    ids=["chunk0", "chunk16", "granite-chunk16", "granite-hd128-chunk0"])
 def model(request):
-    jcfg, tcfg = _configs(request.param)
+    chunk, arch, widths = request.param
+    jcfg, tcfg = _configs(chunk, arch, **widths)
     tree = _np_tree(jcfg)
     jparams = jax.tree_util.tree_map(jnp.asarray, tree)
     tparams = params_from_numpy(tree, tcfg, device="cpu")
@@ -71,28 +81,42 @@ def model(request):
 
 
 def test_config_copy_matches_reference():
-    for chunk in (0, 2048):
-        jcfg, tcfg = _configs(chunk)
+    for arch in ARCHS:
+        for chunk in (0, 2048):
+            jcfg, tcfg = _configs(chunk, arch)
+            assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+        jcfg, tcfg = _configs(0, arch, **HD128)
         assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    assert (dataclasses.asdict(j_get_config("qwen1.5-0.5b"))
-            == dataclasses.asdict(get_config("qwen1.5-0.5b")))
-    full = get_config("qwen1.5-0.5b")
-    assert full.param_count() == j_get_config("qwen1.5-0.5b").param_count()
+        assert (dataclasses.asdict(j_get_config(arch))
+                == dataclasses.asdict(get_config(arch)))
+        full = get_config(arch)
+        assert full.param_count() == j_get_config(arch).param_count()
+    granite = get_config("granite-3-8b")
+    assert (granite.num_heads // granite.num_kv_heads, granite.head_dim,
+            granite.qkv_bias) == (4, 128, False)
 
 
 def test_init_params_tree_matches_reference_shapes():
-    jcfg, tcfg = _configs(0)
-    ref = jax.tree_util.tree_map(lambda a: tuple(a.shape), _np_tree(jcfg))
-    got = init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
-    got_shapes = jax.tree_util.tree_map(lambda t: tuple(t.shape), got)
-    assert got_shapes == ref
-    # the reference init scheme: zeros for norms/biases, scaled elsewhere
-    blocks = got["blocks"]
-    assert not blocks["ln1"].any() and not blocks["attn"]["bq"].any()
-    std = blocks["mlp"]["w_gate"].std().item()
-    assert abs(std - tcfg.d_model ** -0.5) < 0.1 * tcfg.d_model ** -0.5
-    again = init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
-    assert torch.equal(again["embed"]["tok"], got["embed"]["tok"])
+    for arch in ARCHS:
+        jcfg, tcfg = _configs(0, arch)
+        ref = jax.tree_util.tree_map(lambda a: tuple(a.shape),
+                                     _np_tree(jcfg))
+        got = init_params(tcfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+        got_shapes = jax.tree_util.tree_map(lambda t: tuple(t.shape), got)
+        assert got_shapes == ref
+        # the reference init scheme: zeros for norms/biases, scaled
+        # elsewhere; the qkv biases exist only where the config has them
+        blocks = got["blocks"]
+        assert not blocks["ln1"].any()
+        assert ("bq" in blocks["attn"]) == tcfg.qkv_bias
+        if tcfg.qkv_bias:
+            assert not blocks["attn"]["bq"].any()
+        std = blocks["mlp"]["w_gate"].std().item()
+        assert abs(std - tcfg.d_model ** -0.5) < 0.1 * tcfg.d_model ** -0.5
+        again = init_params(tcfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+        assert torch.equal(again["embed"]["tok"], got["embed"]["tok"])
 
 
 def test_params_from_numpy_rejects_a_foreign_tree():

@@ -7,11 +7,14 @@ package, on the CPU.
   oracles, and the port's tile-liveness rule against the Pallas
   ``debug_tile_map`` at the same block sizes.
 - Model layer: ``prefill_packed`` and ``prefill_packed_with_prefix`` against
-  the JAX functions in float32 at the reduced qwen1.5-0.5b config.
+  the JAX functions in float32 at the reduced qwen1.5-0.5b and
+  granite-3-8b configs (the ``model`` fixture's params; granite has 4
+  query heads per kv head).
 - Engine layer: the port's packed engine against ``repro.core.engine`` on
   one mixed hit/miss trace (no ``profile()``, so pack formation is
-  deterministic) and against the port's solo engine; the copied
-  batch-formation arithmetic against the reference's.
+  deterministic) and against the port's solo engine, at both reduced
+  configs (the ``engines`` fixture's params); the copied batch-formation
+  arithmetic against the reference's.
 
 Inputs are made from a numpy seed and fed to both sides. Tolerances:
 float32 1e-4 (summation order only; O(1) inputs); bfloat16 5e-2, as in
@@ -62,6 +65,7 @@ BF16_TOL = dict(atol=5e-2, rtol=5e-2)
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 SCORE_GATE = 2e-2
+ARCHS = ("qwen1.5-0.5b", "granite-3-8b")
 YES, NO = 5, 9
 
 
@@ -101,6 +105,7 @@ def _qkv(rng, Sq, Sk, H, KV, d):
     ((40, 30, 20), 128, 4, 2, 16, 0, 0.0),    # GQA + a padding tail
     ((25, 45, 20), 96, 4, 2, 32, 13, 0.0),    # GQA + SWA + padding tail
     ((7, 80, 9), 112, 2, 1, 32, 5, 30.0),     # everything, skewed lengths
+    ((40, 30, 20), 128, 8, 2, 128, 0, 0.0),   # granite: head_dim 128, G = 4
 ])
 def test_segmented_plain_matches_pallas_and_ref(lens, S, H, KV, d, window,
                                                 softcap, dtype):
@@ -133,6 +138,7 @@ def test_segmented_plain_matches_pallas_and_ref(lens, S, H, KV, d, window,
     ((32, 16, 48), (20, 30, 10), 60, 64, 4, 2, 16, 0, 0.0),  # GQA, all hits
     ((48, 32), (25, 13), 40, 48, 4, 2, 32, 13, 0.0),         # GQA + SWA
     ((16, 64), (33, 30), 64, 64, 8, 2, 32, 0, 50.0),         # softcap
+    ((32, 16, 48), (20, 30, 10), 60, 64, 8, 2, 128, 0, 0.0),  # d 128, G 4
 ])
 def test_positioned_plain_matches_pallas_and_ref(plens, slens, S, pmax, H, KV,
                                                  d, window, softcap, dtype):
@@ -364,11 +370,11 @@ def _np_tree(jcfg, seed: int = 0):
         else (0.1 * rng.standard_normal(a.shape)).astype(np.float32), tree)
 
 
-@pytest.fixture(scope="module")
-def model():
+@pytest.fixture(scope="module", params=ARCHS)
+def model(request):
     over = dict(hybrid_chunk=0, dtype="float32", param_dtype="float32")
-    jcfg = j_reduce_config(j_get_config("qwen1.5-0.5b"), **over)
-    tcfg = reduce_config(get_config("qwen1.5-0.5b"), **over)
+    jcfg = j_reduce_config(j_get_config(request.param), **over)
+    tcfg = reduce_config(get_config(request.param), **over)
     tree = _np_tree(jcfg)
     return (jcfg, tcfg, jax.tree_util.tree_map(jnp.asarray, tree),
             params_from_numpy(tree, tcfg, device="cpu"))
@@ -501,10 +507,10 @@ def test_packed_prefix_layout_ids_and_positions():
 # engine layer
 # --------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def engines():
-    jcfg = j_reduce_config(j_get_config("qwen1.5-0.5b"), hybrid_chunk=0)
-    tcfg = reduce_config(get_config("qwen1.5-0.5b"), hybrid_chunk=0)
+@pytest.fixture(scope="module", params=ARCHS)
+def engines(request):
+    jcfg = j_reduce_config(j_get_config(request.param), hybrid_chunk=0)
+    tcfg = reduce_config(get_config(request.param), hybrid_chunk=0)
     jparams = materialize(jax.random.PRNGKey(0), build(jcfg).defs(),
                           jnp.float32)
     tree = jax.tree_util.tree_map(np.asarray, jparams)
