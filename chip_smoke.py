@@ -20,9 +20,11 @@ checks that the refusal names its rule. It raises on the first failure:
   2. holds each kernel against its plain PyTorch version on the card at
      the main path's shapes, in bf16 (the tensor-core kernels) and once in
      f32 (the CUDA-core kernels), and times kernel, plain version and one
-     library call used only as a yardstick: the fused MLP at T = 16, 128,
-     512 and 2048; flash attention in its three modes: dense (causal
-     S = 512 and 2048, and the hit's 128 queries over 1152 keys),
+     library call used only as a yardstick: RMSNorm at every T of the main
+     path (a decode step's batch, 128, 512, 1024, 2048) with its launch
+     plan; the fused MLP at T = 16, 128, 512 and 2048; flash attention in
+     its three modes: dense (causal S = 512 and 2048, and the hit's 128
+     queries over 1152 keys),
      segmented (a packed miss: S=2048 of mixed segments and a padding
      tail) and positioned (a packed hit: 4 rows over 1024/768/512/1024-
      token prefixes), where it also holds the kernel's executed-tile map
@@ -81,7 +83,11 @@ checks that the refusal names its rule. It raises on the first failure:
   7. drives the dense decode path through ``build(cfg)``: flash decoding
      (B6) against its plain version at the decode path's shape (B=16,
      S=32768, bf16 and f32), a ragged, a GQA and a head_dim-32 softcap
-     case, each timed with an SDPA yardstick and its live-slot bound; then
+     case (granite: rows that end inside a key tile and on chunk edges),
+     each with its launch plan (kernel, resident blocks a SM, splits,
+     waves), a ``limit`` line (the bf16 reading beside those of kernels
+     that skip one live key tile of a row), an SDPA yardstick and its
+     live-slot bound; then
      full-width ``decode_step`` — 8 steps after a 1024-token ``prefill``
      (B=2), each step's logits against ``prefill`` of the same prefix,
      through the kernels and through the plain versions — and 8 steps at
@@ -137,10 +143,12 @@ F32_TOL = (1e-4, 1e-4)
 ATTN_BF16_TOL = (4e-3, 1e-2)
 MLP_BF16_TOL = (1e-2, 1e-2)
 # flash decoding averages thousands of slots, so its outputs are small
-# (|plain| ~0.01 at S = 32768): a fixed 2e-2 would pass a kernel that drops
-# whole chunks. The atol sits far below what a dropped chunk reads and the
-# rtol above one bf16 ulp (2^-7 relative at most)
-DEC_BF16_TOL = (1e-3, 2e-2)
+# (|plain| ~0.01 at S = 32768), and one dropped 64-slot tile of a 32768-slot
+# row moves them by ~1e-3 at most. Kernel and plain version both compute in
+# f32 and round once, so they differ by at most one bf16 ulp, 2^-7 |y| at
+# most: rtol 8e-3 admits that and no more, and atol 2e-4 covers outputs
+# near 0, so a one-tile skip reads above 1
+DEC_BF16_TOL = (2e-4, 8e-3)
 # full-width logits limits (max and mean |Δ|), set for logits of std up to
 # LOGITS_REF_STD (qwen1.5-0.5b's, 0.6389-0.6404 at random init on the
 # card, PERF.md); wider logits scale both by their std (logits_limits)
@@ -196,7 +204,8 @@ class Spec(typing.NamedTuple):
     suffix lengths of 4 rows, pmax, S; also the packed engine's profiles
     and posts, and the least rows and the pmax (0: any) that one of the
     packed engine's hit steps must have), the decode depth batch, the kernel
-    rows' token counts (the MLP's first T is its JSON row), extra dense
+    rows' token counts (the MLP's first T is its JSON row; RMSNorm's JSON
+    row is norm_t, and it is timed at every T of norm_ts), extra dense
     attention cases (label, B, Sq, Sk, H, KV, d, kwargs) and extra decode
     cases (label, B, S, H, KV, d, kv_len or "ragged", softcap) for phase 2,
     whether phase 6's order and graph memory checks run, and the eager
@@ -211,6 +220,7 @@ class Spec(typing.NamedTuple):
     dec_b: int
     mlp_ts: tuple
     norm_t: int
+    norm_ts: tuple
     extra_attn: tuple
     extra_dec: tuple
     graph_phases: bool
@@ -225,6 +235,7 @@ QWEN = Spec("qwen1.5-0.5b", plens=(1024, 768, 512, 1024),
             slens=(128, 96, 160, 128), pmax=1024, hit_s=512, hit_nb=4,
             hit_pmax=1024, dec_b=16,
             mlp_ts=(512, 16, 128, 2048), norm_t=512,
+            norm_ts=(16, 128, 512, 1024, 2048),
             extra_attn=(
                 ("gqa_window_softcap_padded", 2, 300, 300, 16, 4, 64,
                  dict(window=128, softcap=30.0, kv_valid=250)),
@@ -248,7 +259,10 @@ GRANITE = Spec("granite-3-8b", plens=(512, 384, 256, 512),
                slens=(128, 96, 160, 128), pmax=512, hit_s=512, hit_nb=2,
                hit_pmax=0, dec_b=8,
                mlp_ts=(512, 8, 128, 2048), norm_t=2048,
-               extra_attn=(), extra_dec=(), graph_phases=False, eager_ms={})
+               norm_ts=(8, 128, 512, 1024, 2048), extra_attn=(),
+               extra_dec=(("ragged_tiles", 8, DEC_S, 32, 8, 128, "tiles",
+                           0.0),),
+               graph_phases=False, eager_ms={})
 SPECS = (QWEN, GRANITE)
 
 # JSON entries: (name, launch counter, TPU kernel it replaces); the entry
@@ -488,24 +502,43 @@ def check_kernels(torch, dev, spec: Spec):
     out = {}
     print(f"phase 2 at {spec.arch} widths", flush=True)
 
-    # RMSNorm at (spec.norm_t, d_model)
-    # each kernel is checked in f32, then in bf16 on the inputs it is timed
-    # on: an entry's max_abs_err is that bf16 check's, f32_err the f32 one's
-    T, D = spec.norm_t, cfg.d_model
-    errs = {}
-    for dtype, tol in ((torch.float32, F32_TOL), (bf16, BF16_TOL)):
-        x, w = randn(T, D, dtype=dtype), randn(D, std=0.1, dtype=dtype)
-        errs[dtype] = compare(torch, rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w),
-                              tol, f"rmsnorm {dtype}")
-    w1 = (1.0 + w.float()).to(bf16)
-    b_ms, b_by = bound(chip, 4.0 * T * D, 2 * (2 * T * D + D))
-    out["rmsnorm"] = dict(
-        max_abs_err=errs[bf16], f32_err=errs[torch.float32],
-        ms=time_ms(torch, lambda: rn.rmsnorm(x, w)),
-        plain_ms=time_ms(torch, lambda: rn.rmsnorm_plain(x, w)),
-        library_ms=time_ms(torch, lambda: F.rms_norm(x, (D,), w1, 1e-6)),
-        bound_ms=b_ms, bound_by=b_by, shape=f"T={T} D={D} bf16")
-    report("rmsnorm", out["rmsnorm"])
+    # RMSNorm at the model's d_model and every T of the main path
+    # (spec.norm_ts: a decode step's batch, a hit, a packed hit, a packed
+    # miss, a miss), each with its launch plan; the JSON row is T =
+    # spec.norm_t. Each kernel is checked in bf16 on the inputs it is timed
+    # on (an entry's max_abs_err), and the JSON row's shape also in f32
+    # (f32_err)
+    D = cfg.d_model
+    for T in spec.norm_ts:
+        errs = {}
+        dtypes = ((torch.float32, F32_TOL), (bf16, BF16_TOL)) \
+            if T == spec.norm_t else ((bf16, BF16_TOL),)
+        for dtype, tol in dtypes:
+            x, w = randn(T, D, dtype=dtype), randn(D, std=0.1, dtype=dtype)
+            errs[dtype] = compare(torch, rn.rmsnorm(x, w),
+                                  rn.rmsnorm_plain(x, w), tol,
+                                  f"rmsnorm T={T} {dtype}")
+        w1 = (1.0 + w.float()).to(bf16)
+        plan = rn.launch_plan(
+            T, D, x.element_size(), rn._sm_count(dev.index), rn.vector_rule(
+                D, x.element_size(), x.stride(0), x.data_ptr(),
+                w.data_ptr()))
+        b_ms, b_by = bound(chip, 4.0 * T * D, 2 * (2 * T * D + D))
+        row = dict(
+            max_abs_err=errs[bf16], f32_err=errs.get(torch.float32),
+            ms=time_ms(torch, lambda: rn.rmsnorm(x, w)),
+            plain_ms=time_ms(torch, lambda: rn.rmsnorm_plain(x, w)),
+            library_ms=time_ms(torch, lambda: F.rms_norm(x, (D,), w1, 1e-6)),
+            bound_ms=b_ms, bound_by=b_by,
+            shape=f"T={T} D={D} bf16, plan: "
+                  + (f"vector, {plan.warps_per_row} warps a row, "
+                     f"{plan.rows_per_block} rows a block, {plan.vectors} "
+                     f"16-byte vectors a thread, {plan.blocks} blocks of "
+                     f"{plan.threads}" if plan.vector else
+                     f"scalar, {plan.blocks} blocks of {plan.threads}"))
+        report("rmsnorm" if T == spec.norm_t else f"rmsnorm[T={T}]", row)
+        if T == spec.norm_t:
+            out["rmsnorm"] = row
 
     # attention cases: (label, B, Sq, Sk, H, KV, d, kwargs) at the model's
     # heads; the first is the JSON row, causal_2048 the solo miss's shape,
@@ -923,12 +956,72 @@ def decode_bound_bytes(q, k, kv_len) -> int:
                                 * KV * d) + kv_len.numel() * 4)
 
 
+def decode_plan(dev, B, S, H, KV, d, dtype):
+    """Flash decoding's launch plan on this card for q (B, 1, H, d) and
+    caches (B, S, KV, d) of ``dtype``: the kernel (``kernel_rule``), its
+    resident blocks a SM, the split rule's splits and chunk, blocks and
+    waves, as the wrapper makes it."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
+    tc = da.kernel_rule(H // KV, dtype) == "tc"
+    per_sm = da._blocks_per_sm(dev.index, _build.dtype_code(dtype), d,
+                               H // KV, tc)
+    return da.launch_plan(B, S, H, KV, dtype, da._sm_count(dev.index),
+                          per_sm)
+
+
+def decode_skips(torch, q, k, v, kv_len, want, tol, softcap=0.0):
+    """Readings of a kernel that skips one live ``KEY_TILE``-slot key tile
+    of one row, for every such (row, tile): the plain version's arithmetic
+    with that tile's slots masked, against the plain output. Masking a
+    tile takes its terms out of the softmax's sums, so every skip comes
+    from one pass: per-tile sums l_t = sum p and o_t = sum p v (p against
+    the row's max), and the skip's output (O - o_t) / (L - l_t), cast to
+    q's dtype. Returns a list of (reading, row, tile)."""
+    from repro_torch.kernels import decode_attention as da
+    B, _, H, d = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G, T = H // KV, da.KEY_TILE
+    nt = -(-S // T)
+    pad = (0, 0, 0, 0, 0, nt * T - S)
+    kf = torch.nn.functional.pad(k.float(), pad)
+    qf = q.reshape(B, KV, G, d).float() * d ** -0.5
+    s = torch.einsum("bkgd,bskd->bkgs", qf, kf)
+    del kf
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    live = (torch.arange(nt * T, device=q.device)[None, :]
+            < kv_len.reshape(B, 1))[:, None, None, :]
+    s = s.masked_fill(~live, da.NEG_INF)
+    p = (torch.exp(s - s.amax(-1, keepdim=True)) * live).view(
+        B, KV, G, nt, T)
+    del s
+    vf = torch.nn.functional.pad(v.float(), pad).view(B, nt, T, KV, d)
+    o_t = torch.einsum("bkgtj,btjkd->bkgtd", p, vf)
+    del vf
+    l_t = p.sum(-1, keepdim=True)
+    skip = ((o_t.sum(3, keepdim=True) - o_t)
+            / (l_t.sum(3, keepdim=True) - l_t).clamp_min(1e-30))
+    skip = skip.to(q.dtype).float()
+    ref = want.reshape(B, KV, G, 1, d).float()
+    atol, rtol = tol
+    read = ((skip - ref).abs() / (atol + rtol * ref.abs())).amax((1, 2, 4))
+    tile_live = (torch.arange(nt, device=q.device)[None, :] * T
+                 < kv_len.reshape(B, 1))
+    rows, tiles = tile_live.nonzero(as_tuple=True)
+    return list(zip(read[rows, tiles].tolist(), rows.tolist(),
+                    tiles.tolist()))
+
+
 def check_decode_kernel(torch, dev, spec: Spec):
     """Phase 2, flash decoding (B6): the kernel against its plain version on
     the card at the decode path's shape (the model's heads, B = spec.dec_b,
     S = DEC_S; bf16, and in f32) and at the model's extra cases (qwen1.5-
-    0.5b: a ragged, a GQA and a head_dim-32 softcap shape); times with an
-    SDPA yardstick over the live slots; live-slot bounds."""
+    0.5b: a ragged, a GQA and a head_dim-32 softcap shape; granite-3-8b:
+    rows ending inside a key tile and on chunk boundaries); the bf16 limit
+    beside the readings of kernels that skip one live key tile of a row;
+    the launch plan; times with an SDPA yardstick over the live slots;
+    live-slot bounds."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
@@ -947,6 +1040,10 @@ def check_decode_kernel(torch, dev, spec: Spec):
         if lens == "ragged":         # an empty, a short and a full row
             lens = [1, 1000, 10923, S] + rng.integers(1, S + 1,
                                                       B - 4).tolist()
+        elif lens == "tiles":        # ends inside a tile, on chunk edges
+            c = decode_plan(dev, B, S, H, KV, d, torch.bfloat16).chunk
+            t = da.KEY_TILE
+            lens = [1, t + 1, c, c + 37, 2 * c, 2 * c + 1, S - 37, S][:B]
         kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
         errs = {}
         for dtype, tol in ((torch.float32, F32_TOL),
@@ -954,22 +1051,29 @@ def check_decode_kernel(torch, dev, spec: Spec):
             q = torch.randn((B, 1, H, d), generator=gen, device=dev).to(dtype)
             k, v = (torch.randn((B, S, KV, d), generator=gen, device=dev
                                 ).to(dtype) for _ in range(2))
-            errs[dtype] = compare(
-                torch, da.decode_attention(q, k, v, kv_len, softcap=cap),
-                da.decode_attention_plain(q, k, v, kv_len, softcap=cap), tol,
-                f"decode_attention {label} {dtype}")
+            got = da.decode_attention(q, k, v, kv_len, softcap=cap)
+            want = da.decode_attention_plain(q, k, v, kv_len, softcap=cap)
+            errs[dtype] = compare(torch, got, want, tol,
+                                  f"decode_attention {label} {dtype}")
             if dtype == torch.float32:
                 del q, k, v
+        report_limit(torch, f"decode_attention[{label}]", got, want,
+                     DEC_BF16_TOL, decode_skips(torch, q, k, v, kv_len, want,
+                                                DEC_BF16_TOL, softcap=cap))
+        del got, want
         live = decode_live(k, kv_len)
         nbytes = decode_bound_bytes(q, k, kv_len)
         pairs = live * H
         b_ms, b_by = bound(chip, 4.0 * d * pairs, nbytes)
-        splits, chunk = da.split_rule(B * KV, S, da._sm_count(dev.index))
+        plan = decode_plan(dev, B, S, H, KV, d, q.dtype)
         print(f"bound decode_attention[{label}]: {nbytes} bytes (q, output, "
               f"kv_len and K/V over {live} live slots of {B * S}), {pairs} "
               f"live (q, slot) pairs over {H} heads -> {b_ms:.6f} ms "
-              f"({b_by}); split rule: {splits} splits of {chunk} slots, "
-              f"{B * KV * splits} blocks", flush=True)
+              f"({b_by}); plan: kernel {plan.kernel}, {plan.per_sm} "
+              f"resident blocks a SM, {plan.splits} splits of {plan.chunk} "
+              f"slots, {plan.blocks} blocks, {plan.waves:.3f} waves; "
+              f"kv_len {'S in every row' if min(lens) >= S else lens}",
+              flush=True)
         qt = q.transpose(1, 2).contiguous()                 # (B, H, 1, d)
         kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
         mask = None if min(lens) >= S else (
@@ -992,7 +1096,9 @@ def check_decode_kernel(torch, dev, spec: Spec):
             library_ms=time_ms(torch, library) if not cap else None,
             bound_ms=b_ms, bound_by=b_by,
             shape=f"B={B} S={S} H={H} KV={KV} d={d} {label} bf16, live "
-                  f"slots {live}/{B * S}")
+                  f"slots {live}/{B * S}, {plan.kernel} kernel, "
+                  f"{plan.splits} splits of {plan.chunk}, {plan.per_sm} "
+                  f"blocks a SM, {plan.waves:.3f} waves")
         report(f"decode_attention[{label}]", row)
         if label == "decode_path":
             out["decode_attention"] = row
@@ -1864,8 +1970,12 @@ def trace_decode_step(torch, api, params, cache, tokens, position) -> None:
             api.decode_step(params, tokens, cache, pos)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    # a GQA model's decode runs flash decoding's tensor-core kernel
+    gqa = api.cfg.num_heads > api.cfg.num_kv_heads
     report_trace(torch, prof, f"{api.cfg.name} decode B={tokens.shape[0]} "
-                 f"S={cache['k'].shape[2]}", wall, expect=TC_DECODE)
+                 f"S={cache['k'].shape[2]}", wall,
+                 expect=TC_DECODE + (("decode_split_tc_kernel",) if gqa
+                                     else ()))
 
 
 def shape_key(rec):
@@ -1945,7 +2055,7 @@ def report_trace(torch, prof, label: str, wall: float, expect=(),
               ("split_sum", "fused_mlp"),
               ("rmsnorm", "rmsnorm"), ("decode_split", "decode_attention"),
               ("decode_combine", "decode_attention"))
-    dev_ms, n, names = {}, {}, {}
+    dev_ms, n, names, name_ms = {}, {}, {}, {}
     evs = sorted((e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA),
                  key=lambda e: e.time_range.start)
@@ -1960,6 +2070,8 @@ def report_trace(torch, prof, label: str, wall: float, expect=(),
                      .split("(")[0])
             names.setdefault(g, {}).setdefault(short, 0)
             names[g][short] += 1
+            name_ms[short] = (name_ms.get(short, 0.0)
+                              + e.time_range.elapsed_us() / 1e3)
     busy = sum(dev_ms.values())
     against = ("" if unprofiled is None or not busy else
                f" ({1 - busy / unprofiled:.4f} against the unprofiled warm "
@@ -1983,9 +2095,9 @@ def report_trace(torch, prof, label: str, wall: float, expect=(),
           + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.3f} "
                       f"({e.count})" for e in host), flush=True)
     ran = {k for per in names.values() for k in per}
-    print(f"trace {label}: port kernels (launches): "
-          + "; ".join(f"{g}: " + ", ".join(f"{k} ({c})" for k, c in
-                                           sorted(per.items()))
+    print(f"trace {label}: port kernels (launches, device ms): "
+          + "; ".join(f"{g}: " + ", ".join(f"{k} ({c}, {name_ms[k]:.3f})"
+                                           for k, c in sorted(per.items()))
                       for g, per in sorted(names.items())), flush=True)
     missing = [k for k in expect if not any(k in r for r in ran)]
     if missing:

@@ -14,13 +14,18 @@ dtype and width (``width_rule``): 32, 64 and 128 in both dtypes
 launch. At most ``MAX_GROUP`` query heads per kv head.
 
 The Pallas grid (B, KV, splits) walks the splits serially with an (m, l,
-acc) carry. The Hopper kernel (``csrc/decode_attention.cu``) runs the
-splits in parallel, (B*KV, splits) blocks, each over one chunk of slots up
-to ``kv_len[b]`` (a chunk past it loads nothing), and a combine kernel
-merges the splits' f32 partials. The number of splits is ``split_rule`` of
-(B*KV, S) and the card's SM count; it reads no ``kv_len`` on the host, so a
-decode step never waits on the device. At G = 1 the kernel is a GEMV over
-the live cache slots, bound by their bytes.
+acc) carry. The Hopper kernels (``csrc/decode_attention.cu``) run the
+splits in parallel, (B*KV, splits) blocks, each over one chunk of whole
+``KEY_TILE``-slot tiles up to ``kv_len[b]`` (a chunk past it loads
+nothing), and a combine kernel merges the splits' f32 partials. Which
+kernel runs is a rule of dtype and group (``kernel_rule``): bf16 at G >= 2
+takes the tensor-core kernel (K and V through a shared-memory ``cp.async``
+ring, each tile's scores once per key on ``mma.sync``, P.V in f32), bf16 at
+G = 1 and f32 the CUDA-core GEMV kernel. The number of splits is
+``split_rule`` of (B*KV, S), the card's SM count and the resident blocks a
+SM of the kernel that will run (``_blocks_per_sm``, a host query made once
+per kernel): one wave of blocks where the rows fit one. It reads no
+``kv_len`` on the host, so a decode step never waits on the device.
 
 A row with ``kv_len = 0`` gives 0 (the reference's softmax over no live
 slot gives the mean of V instead; see ROADMAP §C). ``decode_attention``
@@ -32,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -42,31 +47,112 @@ NEG_INF = -1e30
 # head dims instantiated in csrc/decode_attention.cu, by dtype (width_rule)
 HEAD_DIMS = {torch.bfloat16: (32, 64, 128), torch.float32: (32, 64, 128)}
 MAX_GROUP = 8                       # query heads per kv head
-BLOCKS_PER_SM = 4                   # split rule: blocks to aim for per SM
-CHUNK_ALIGN = 64                    # split rule: slots per chunk, a multiple
+KEY_TILE = 64                       # slots a key tile; chunks are whole tiles
+# split rule, where the rows alone fill a wave: a block's fixed cost (its
+# prologue, the ring's first tiles in flight, the merge and its partial) in
+# tiles' worth of streaming
+BLOCK_OVERHEAD_TILES = 2
+MAX_SPLITS = 65535                  # the grid's y dimension
 launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 7     # q, k, v, kv_len, out, ws, strides
              + [ctypes.c_int] * 7      # B, S, H, KV, d, splits, chunk
              + [ctypes.c_float, ctypes.c_float,         # scale, softcap
-                ctypes.c_int, ctypes.c_void_p])         # dtype, stream
+                ctypes.c_int, ctypes.c_int,             # dtype, tensor cores
+                ctypes.c_void_p])                       # stream
+_OCC_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]  # dtype, d, G, tc, out
 
 
-def split_rule(rows: int, S: int, n_sm: int) -> Tuple[int, int]:
-    """(splits, chunk) for ``rows = B * KV`` blocks' worth of (batch row, kv
-    head) pairs over S slots on a card of ``n_sm`` SMs: enough splits for
-    about ``BLOCKS_PER_SM`` blocks per SM, each chunk a multiple of
-    ``CHUNK_ALIGN`` slots; ``splits * chunk >= S > (splits - 1) * chunk``
-    for S > 0."""
-    want = max(1, -(-BLOCKS_PER_SM * n_sm // max(rows, 1)))
-    chunk = max(1, -(-S // want))
-    chunk = -(-chunk // CHUNK_ALIGN) * CHUNK_ALIGN
-    return max(1, -(-S // chunk)), chunk
+class Plan(NamedTuple):
+    """A launch of the split kernel: which kernel (``kernel_rule``), the
+    key split, the resident blocks a SM it was planned for, its blocks and
+    the waves they make on the card."""
+    kernel: str
+    splits: int
+    chunk: int
+    per_sm: int
+    blocks: int
+    waves: float
+
+
+def kernel_rule(G: int, dtype) -> str:
+    """``"tc"``, the tensor-core kernel, for bf16 at G >= 2 (GQA: a key
+    tile's scores are one mma per 16 keys for up to 8 heads); ``"gemv"``,
+    the CUDA-core kernel, for bf16 at G = 1 (a GEMV, where the mma's 8
+    head columns would be 7 of padding) and for f32 (no f32 mma that keeps
+    f32 scores). A rule of dtype and group, held before every launch."""
+    return "tc" if dtype == torch.bfloat16 and G >= 2 else "gemv"
+
+
+@functools.lru_cache(maxsize=None)
+def split_rule(rows: int, S: int, n_sm: int,
+               per_sm: int) -> Tuple[int, int]:
+    """(splits, chunk) for ``rows = B * KV`` (batch row, kv head) pairs over
+    S slots on a card of ``n_sm`` SMs that holds ``per_sm`` blocks of the
+    kernel at once (``slots = n_sm * per_sm``). Every chunk is a whole
+    number of ``KEY_TILE`` slots and ``splits * chunk >= S > (splits - 1) *
+    chunk`` for S > 0.
+
+    The kernel is bound by bytes, so its time is the live slots' bytes over
+    the card's rate while its resident blocks keep that rate, and a wave
+    that leaves most slots empty (576 blocks of granite's decode on 528
+    slots: a second wave of 48) runs at a fraction of it.
+    Where the rows fit one wave, the grid is one wave: the most splits whose
+    blocks the card holds at once. Where the rows alone fill a wave, the
+    chunking whose waves times a block's work (its tiles plus
+    ``BLOCK_OVERHEAD_TILES``) is least, the fewer splits on a tie, so the
+    last wave's share is small. A pure function of shapes and the two card
+    numbers."""
+    tiles = max(1, -(-S // KEY_TILE))
+    slots = max(1, n_sm * per_sm)
+    if rows <= slots:
+        chunk = -(-tiles // min(tiles, slots // max(rows, 1), MAX_SPLITS))
+        return -(-tiles // chunk), chunk * KEY_TILE
+    best = None
+    for chunk in range(tiles, 0, -1):
+        splits = -(-tiles // chunk)
+        if splits > MAX_SPLITS:
+            break
+        if -(-tiles // splits) != chunk:       # not a distinct chunking
+            continue
+        cost = -(-rows * splits // slots) * (chunk + BLOCK_OVERHEAD_TILES)
+        if best is None or cost < best[0]:
+            best = (cost, splits, chunk)
+    return best[1], best[2] * KEY_TILE
+
+
+def launch_plan(B: int, S: int, H: int, KV: int, dtype, n_sm: int,
+                per_sm: int) -> Plan:
+    """The plan of a call at these shapes on a card of ``n_sm`` SMs that
+    holds ``per_sm`` blocks of its kernel."""
+    splits, chunk = split_rule(B * KV, S, n_sm, per_sm)
+    blocks = B * KV * splits
+    return Plan(kernel_rule(H // KV, dtype), splits, chunk, per_sm, blocks,
+                blocks / (n_sm * per_sm))
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(index: int, dtype_code: int, d: int, G: int,
+                   tc: bool) -> int:
+    """Resident blocks a SM of the split kernel for (dtype, d, G, kernel)
+    on device ``index``: ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
+    a host query that launches nothing; made once, at the first call (the
+    eager warm-up, before any graph capture)."""
+    fn = _build.function("decode_attention", "decode_attention_occupancy",
+                         _OCC_ARGTYPES)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = fn(dtype_code, d, G, int(tc), ctypes.addressof(out))
+    _build.check(err, "decode_attention occupancy")
+    if out.value < 1:
+        raise RuntimeError(f"decode_attention: the kernel for d {d}, G {G} "
+                           f"fits no block on an SM")
+    return out.value
 
 
 def _check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -166,8 +252,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty((B, 1, H, d), dtype=q.dtype, device=q.device)
     if B == 0 or H == 0:
         return out
-    splits, chunk = split_rule(B * KV, S, _sm_count(q.device.index))
-    ws = torch.empty(B * KV * splits * (H // KV) * (d + 2),
+    G = H // KV
+    tc = kernel_rule(G, q.dtype) == "tc"
+    index = q.device.index
+    splits, chunk = split_rule(B * KV, S, _sm_count(index),
+                               _blocks_per_sm(index, code, d, G, tc))
+    ws = torch.empty(B * KV * splits * G * (d + 2),
                      dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 8)(
         q.stride(0), q.stride(2), *k_cache.stride()[:3],
@@ -178,7 +268,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                  kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
                  ctypes.addressof(strides), B, S, H, KV, d, splits, chunk,
-                 d ** -0.5, float(softcap), code,
+                 d ** -0.5, float(softcap), code, int(tc),
                  torch.cuda.current_stream().cuda_stream)
     _build.check(err, "decode_attention")
     global launches

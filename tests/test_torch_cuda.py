@@ -4,8 +4,10 @@ Each kernel is held against its plain PyTorch version on the same CUDA
 tensors over shapes the CPU tests cannot reach (every template
 instantiation, ragged edges, strided inputs, float32 and bfloat16; for
 attention also the segmented and positioned modes and their executed-tile
-maps; for flash decoding ragged and empty rows, GQA groups and strided
-cache views), the engine on the card, solo and packed, against the same
+maps; for flash decoding ragged and empty rows, rows ending at key-tile
+and chunk edges, GQA groups on both kernels and strided cache views; for
+RMSNorm the vector kernel's plans and the scalar kernel's widths), the
+engine on the card, solo and packed, against the same
 engine on the CPU, the engine's CUDA graphs (a replay's logits and kept KV
 against an eager run of the same forward on the same inputs, bit for bit:
 the same kernels and launch plans, no atomics) and the decode chain on the
@@ -80,10 +82,26 @@ def _close(got, want, dtype, tol=TOL):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("T,D,strided", [
-    (1, 32, False), (37, 96, True), (512, 1024, False), (3, 4096, True)])
+    (1, 32, False), (37, 96, True), (512, 1024, False), (3, 4096, True),
+    # the vector kernel's plans: two warps a row (3 vectors a thread), 8
+    # warps a row, granite's main-path T at D 4096, qwen's at D 1024
+    (5, 1536, False), (2, 8192, True), (2048, 4096, False), (16, 1024, True),
+    # the scalar kernel's width: D not whole 16-byte vectors in bf16, a
+    # row stride of D + 1, a base 2 elements off, a row past 1024 threads
+    (7, 100, False), (9, 1024, "odd"), (6, 4096, "offset"),
+    (1, 40000, False)])
 def test_rmsnorm_kernel_matches_plain(dev, T, D, strided, dtype):
-    x = _randn(dev, T, D + (64 if strided else 0), dtype=dtype)[:, :D]
+    if strided == "offset":
+        x = _randn(dev, T * D + 2, dtype=dtype)[2:].view(T, D)
+    else:
+        pad = {True: 64, False: 0, "odd": 1}[strided]
+        x = _randn(dev, T, D + pad, dtype=dtype)[:, :D]
     w = _randn(dev, D, std=0.1, dtype=dtype, seed=1)
+    vector = rn.vector_rule(D, x.element_size(), x.stride(0), x.data_ptr(),
+                            w.data_ptr())
+    scalar = (strided in ("odd", "offset") or D == 40000
+              or D % (16 // x.element_size()) != 0)
+    assert vector is not scalar
     n0 = rn.launches
     got = rn.rmsnorm(x, w)
     assert rn.launches == n0 + 1
@@ -500,6 +518,34 @@ def test_decode_attention_kernel_matches_plain(dev, B, S, H, KV, d, kv_len,
     _close(got, da.decode_attention_plain(q, k, v, n, **kw), dtype, DEC_TOL)
 
 
+def _plan(dev, q, k):
+    """The launch plan the wrapper makes for q and cache k on this card."""
+    B, _, H, d = q.shape
+    return smoke.decode_plan(dev, B, k.shape[1], H, k.shape[2], d, q.dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,KV,d", [(4, 4, 64), (8, 4, 32), (32, 8, 128),
+                                    (16, 2, 64), (8, 1, 128), (12, 4, 64)])
+def test_decode_attention_at_tile_and_chunk_edges(dev, H, KV, d, dtype):
+    """Rows whose kv_len is 1, a key tile less or more one, on a chunk
+    boundary, one past it, one short of the second and past it by a tile
+    and a slot, and the whole cache: the last tile of a chunk and the
+    slots past kv_len are masked, and chunks past kv_len load nothing. G
+    1, 2, 4, 8 and 3 (padded to 4), d 32, 64 and 128."""
+    S, B = 8192, 8
+    q, k, v, n = _decode_inputs(dev, B, S, H, KV, d, [S] * B, dtype)
+    plan = _plan(dev, q, k)
+    assert plan.kernel == da.kernel_rule(H // KV, dtype)
+    c, t = plan.chunk, da.KEY_TILE
+    assert plan.splits > 2 and c % t == 0
+    kv_len = [1, t - 1, t + 1, c, c + 1, 2 * c - 1, c + t + 1, S]
+    q, k, v, n = _decode_inputs(dev, B, S, H, KV, d, kv_len, dtype)
+    got = da.decode_attention(q, k, v, n)
+    torch.cuda.synchronize()
+    _close(got, da.decode_attention_plain(q, k, v, n), dtype, DEC_TOL)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_attention_short_rows_leave_most_splits_empty(dev, dtype):
     """S = 32,768 with rows of 1 and 1000 live slots: most of the split
@@ -507,21 +553,23 @@ def test_decode_attention_short_rows_leave_most_splits_empty(dev, dtype):
     must merge without NaN; a row with kv_len 0 gives 0."""
     kv_len = [1, 1000, 32768, 0]
     q, k, v, n = _decode_inputs(dev, 4, 32768, 4, 4, 64, kv_len, dtype)
-    splits, _ = da.split_rule(4 * 4, 32768, da._sm_count(dev.index))
-    assert splits > 8
+    assert _plan(dev, q, k).splits > 8
     got = da.decode_attention(q, k, v, n)
     _close(got, da.decode_attention_plain(q, k, v, n), dtype, DEC_TOL)
     assert not got[3].any()
 
 
-def test_decode_attention_takes_strided_cache_views(dev):
+@pytest.mark.parametrize("H,d", [(4, 64), (16, 128), (8, 32)])
+def test_decode_attention_takes_strided_cache_views(dev, H, d):
     """A layer of a stacked cache, a slot prefix of a longer cache and a
-    head slice are read in place; a cache that is not unit-stride over d,
-    or whose rows are not 16-byte aligned, is refused, not copied."""
+    head slice are read in place, by the GEMV kernel (G 1) and the
+    tensor-core kernel (G 4 at d 128, G 2 at d 32); a cache that is not
+    unit-stride over d, or whose rows are not 16-byte aligned, is refused,
+    not copied."""
     dtype = torch.bfloat16
-    stack = _randn(dev, 3, 2, 80, 6, 64, dtype=dtype)
-    vstack = _randn(dev, 3, 2, 80, 6, 64, dtype=dtype, seed=1)
-    q = _randn(dev, 2, 1, 4, 64, dtype=dtype, seed=2)
+    stack = _randn(dev, 3, 2, 80, 6, d, dtype=dtype)
+    vstack = _randn(dev, 3, 2, 80, 6, d, dtype=dtype, seed=1)
+    q = _randn(dev, 2, 1, H, d, dtype=dtype, seed=2)
     n = torch.tensor([50, 64], dtype=torch.int32, device=dev)
     for k, v in ((stack[1, :, :64, 1:5], vstack[1, :, :64, 1:5]),
                  (stack[2, :, 10:74, 2:6], vstack[0, :, 3:67, :4])):
@@ -532,9 +580,9 @@ def test_decode_attention_takes_strided_cache_views(dev):
     kt = stack[0, :, :64, :4].transpose(-1, -2).contiguous().transpose(-1, -2)
     with pytest.raises(ValueError):
         da.decode_attention(q, kt, vstack[0, :, :64, :4], n)
-    odd = torch.zeros(2 * 64 * 4 * 64 + 1, dtype=dtype, device=dev)[1:]
+    odd = torch.zeros(2 * 64 * 4 * d + 1, dtype=dtype, device=dev)[1:]
     with pytest.raises(ValueError):
-        da.decode_attention(q, odd.view(2, 64, 4, 64),
+        da.decode_attention(q, odd.view(2, 64, 4, d),
                             vstack[0, :, :64, :4], n)
     assert da.launches == n0
 

@@ -124,17 +124,21 @@ def test_decode_attention_plain_row_with_no_live_slot_gives_zero():
                                **F32)
 
 
+@pytest.mark.parametrize("per_sm", [1, 2, 4, 6, 16])
 @pytest.mark.parametrize("rows,S", [(256, 32768), (32, 2048), (2, 100),
                                     (8, 4100), (1, 1), (4096, 64), (6, 0),
                                     (64, 32768)])     # granite: B 8 x KV 8
-def test_split_rule_covers_the_cache(rows, S):
-    splits, chunk = da.split_rule(rows, S, 132)
-    assert splits >= 1 and chunk % da.CHUNK_ALIGN == 0
+def test_split_rule_covers_the_cache(rows, S, per_sm):
+    splits, chunk = da.split_rule(rows, S, 132, per_sm)
+    assert splits >= 1 and chunk % da.KEY_TILE == 0
     assert splits * chunk >= S and (splits - 1) * chunk < max(S, 1)
-    # about BLOCKS_PER_SM blocks per SM (at least half, after alignment)
-    assert 2 * rows * splits >= min(da.BLOCKS_PER_SM * 132,
-                                    rows * -(-S // da.CHUNK_ALIGN))
-    if (rows, S) == (256, 32768):       # the decode path's shape: 768 blocks
+    # the grid's waves: at least 85% of the slots that its waves offer
+    # hold a block's whole chunk, where there is a wave's worth of tiles
+    tiles, slots = -(-S // da.KEY_TILE), 132 * per_sm
+    if rows * tiles >= 4 * slots:
+        waves = -(-rows * splits // slots)
+        assert rows * tiles >= 0.85 * waves * slots * (chunk // da.KEY_TILE)
+    if (rows, S, per_sm) == (256, 32768, 6):   # qwen's decode: 768 blocks
         assert (splits, chunk) == (3, 10944)
 
 
