@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU (H100):
 
 (``--seed``, default 0, draws every weight and input from another seed.)
 It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
-then runs phases 2-7 below for each model of ``SPECS``: qwen1.5-0.5b, then
+then runs phases 2-8 below for each model of ``SPECS``: qwen1.5-0.5b, then
 granite-3-8b at full width (40 layers, d_model 4096, GQA 32/8, head_dim
 128, d_ff 12,800; qwen's weights, engines and decode cache are freed
 first), each at its own widths and shapes (``Spec``: a model's extra
@@ -96,7 +96,34 @@ checks that the refusal names its rule. It raises on the first failure:
      cache written in place at one slot per layer, peak memory under cache
      + weights + 1 GiB), with the warm step wall, tokens/s and a
      ``torch.profiler`` trace of one warm step;
-  8. prints its total seconds and the ``kernels`` JSON line (every kernel
+  8. the paper's evaluation layer (``run_long_inputs``): (a) prints
+     ``MemoryModel``'s MIL table and prefix budgets at the H100, checks the
+     card's reported memory against ``H100_SXM.hbm_bytes`` (within 1%) and
+     times a pinned host-to-device copy beside ``host_bw``; holds causal
+     attention, RMSNorm and the MLP at the longest S of (b) against their
+     plain versions on the first and last 256 rows, timed beside SDPA /
+     their library calls and bounds (``long kernel`` lines); (b) runs eager ``prefill`` at each S of
+     ``Spec.long_lens`` with ``hybrid_chunk`` on and 0 and ``kv_keep`` 0
+     and 16,384, reads the peak bytes above the weights, fits them over S
+     beside the model, and fails unless hybrid's slope lies below chunk
+     0's and within 1.5x the model's and each kept slice is within 5% of
+     its K/V bytes; (c) a solo engine sized by ``prefix_budget_tokens``
+     serves two 60,000-token requests through the S = 65,536 graph
+     (captured, then replayed; launches counted per forward, the MLP once
+     a chunk), each scored within 2e-2 of eager ``prefill`` (at qwen a
+     third one traced: ``trace`` lines), then the profile lengths; (d)
+     fits ``RooflineJCT``'s efficiency and fixed overhead to those warm
+     steps and, at qwen, replays a 4-user x 4-post ``post_recommendation``
+     trace at full token scale (all arriving at once; twice, the second
+     with every token id moved by one so that every graph is warm) through
+     ``PrefillOnlyEngine()``, every score against a cold engine's,
+     measured latencies beside the port ``Simulator``'s for the same
+     requests and each step's wall beside the roofline's price, then one
+     more warm hit traced. Every replay step runs solo: each miss is
+     longer than the autotuned pack token budget and each hit's cached
+     prefix longer than the pack prefix budget, so the packed modes run in
+     phase 5, not here;
+  9. prints its total seconds and the ``kernels`` JSON line (every kernel
      and attention mode: qwen's row at the top level, each model's row and
      main-path launches under ``models``, ``launches`` their sum), then the
      result line ``{"ok": true, "device": {...}}`` last.
@@ -197,6 +224,21 @@ SEG_S = 2048
 # GiB of KV), B=8 at granite-3-8b (40 GiB beside 16 GB of weights)
 DEC_S, DEC_STEPS = 32768, 8
 DEC_PREFIX, DEC_CONS_B = 1024, 2      # consistency: prefill 1024 tokens, B=2
+# phase 8: the paper's workloads' longest inputs (WL1 post recommendation,
+# WL2 credit verification), the kept slice of the peak-memory runs, the
+# limits on them, the query rows held against the plain attention at long
+# S, the pinned copy timed for the host link, and the replayed trace's size
+WL1_MAX, WL2_MAX = 19_000, 60_000
+MEM_KEEP = 16_384
+SLOPE_LIMIT = 1.5               # measured hybrid slope <= 1.5x the model's
+KEPT_TOL = 0.05                 # kept slice within 5% of kv_keep tokens' K/V
+LONG_TAIL = 256
+HOST_COPY_BYTES = 256 << 20
+REPLAY_USERS, REPLAY_POSTS = 4, 4
+# the replay engine's graph budget: the trace's miss graphs keep every
+# token's K/V as a static output (1.6 GB at S 16,384, 3.2 GB at 32,768 at
+# qwen), past the default 2 GiB, which would drop and recapture them
+REPLAY_GRAPH_BYTES = 24 << 30
 
 
 class Spec(typing.NamedTuple):
@@ -208,8 +250,11 @@ class Spec(typing.NamedTuple):
     row is norm_t, and it is timed at every T of norm_ts), extra dense
     attention cases (label, B, Sq, Sk, H, KV, d, kwargs) and extra decode
     cases (label, B, S, H, KV, d, kv_len or "ragged", softcap) for phase 2,
-    whether phase 6's order and graph memory checks run, and the eager
-    forwards' warm step medians printed beside this run's."""
+    whether the model's extra phases run (phase 6's order and graph memory
+    checks; phase 8's trace replay and its traces of a warm long step and
+    of a warm replay hit), the eager forwards' warm step medians printed
+    beside this run's, and the peak-memory ladder's S of phase 8 (its last
+    also the long attention, MLP and RMSNorm rows' S and T)."""
     arch: str
     plens: tuple
     slens: tuple
@@ -223,8 +268,9 @@ class Spec(typing.NamedTuple):
     norm_ts: tuple
     extra_attn: tuple
     extra_dec: tuple
-    graph_phases: bool
+    extra_phases: bool
     eager_ms: dict
+    long_lens: tuple
 
 
 # qwen1.5-0.5b, the earlier slices' model. Its extra cases cover the
@@ -245,7 +291,8 @@ QWEN = Spec("qwen1.5-0.5b", plens=(1024, 768, 512, 1024),
                 ("gqa", 4, 8192, 16, 2, 64, (8192, 5000, 77, 8192), 0.0),
                 ("d32_softcap", 4, 4100, 8, 4, 32, (4100, 4099, 2050, 1),
                  50.0)),
-            graph_phases=True, eager_ms=EAGER_WARM_MS)
+            extra_phases=True, eager_ms=EAGER_WARM_MS,
+            long_lens=(8192, 16384, 32768, 65536))
 # granite-3-8b at full width (40 layers, d_model 4096, 32/8 heads of 128,
 # d_ff 12,800). Its profiles are half qwen's: autotune_packing sets a token
 # budget of at least 1024 whenever the fit has a slope (a 1024-token step
@@ -262,7 +309,8 @@ GRANITE = Spec("granite-3-8b", plens=(512, 384, 256, 512),
                norm_ts=(8, 128, 512, 1024, 2048), extra_attn=(),
                extra_dec=(("ragged_tiles", 8, DEC_S, 32, 8, 128, "tiles",
                            0.0),),
-               graph_phases=False, eager_ms={})
+               extra_phases=False, eager_ms={},
+               long_lens=(8192, 16384, 32768))
 SPECS = (QWEN, GRANITE)
 
 # JSON entries: (name, launch counter, TPU kernel it replaces); the entry
@@ -364,7 +412,8 @@ def main() -> int:
 
 def run_model(torch, dev, spec: Spec):
     """Every phase at one model's widths. Returns the kernel rows and the
-    launches of its main path (solo engine, packed engine, decode steps)."""
+    launches of its main path (solo engine, packed engine, decode steps,
+    phase 8's engine steps)."""
     print(f"=== {spec.arch}: device memory allocated "
           f"{torch.cuda.memory_allocated()} bytes, reserved "
           f"{torch.cuda.memory_reserved()}, free "
@@ -379,15 +428,19 @@ def run_model(torch, dev, spec: Spec):
     check_packed_forwards(torch, dev, spec, cfg, params)
     solo = run_engine(torch, dev, spec, cfg, params)
     packed = run_packed_engine(torch, dev, spec, cfg, params)
-    if spec.graph_phases:
+    if spec.extra_phases:
         run_order(torch, dev, cfg, params)
         run_graph_memory(torch, dev, cfg, params)
     decode = run_decode(torch, dev, spec, cfg, params)
-    paths = (solo, packed, decode)
+    gc.collect()                  # the decode cache goes back to the card
+    torch.cuda.empty_cache()
+    long = run_long_inputs(torch, dev, spec, cfg, params)
+    paths = (solo, packed, decode, long)
     launches = {k: sum(p.get(k, 0) for p in paths)
                 for k in set().union(*paths)}
     print(f"{spec.arch}: main path launches (solo engine + packed engine + "
-          f"decode steps): {launches}; phases took "
+          f"decode steps + long requests and replay): {launches}; phases "
+          f"took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return results, launches
 
@@ -1156,10 +1209,13 @@ def kernel_launches(launches):
     return {k: launches[k] for k in kernel_modules()}
 
 
-def per_forward(cfg):
+def per_forward(cfg, S: int = 0):
+    """Launches of one forward over S tokens (0: at most one hybrid chunk):
+    the MLP runs once a chunk of ``cfg.hybrid_chunk`` tokens."""
+    chunks = -(-S // cfg.hybrid_chunk) if S and cfg.hybrid_chunk else 1
     return {"rmsnorm": 2 * cfg.num_layers + 1,
-            "flash_attention": cfg.num_layers, "fused_mlp": cfg.num_layers,
-            "decode_attention": 0}
+            "flash_attention": cfg.num_layers,
+            "fused_mlp": cfg.num_layers * chunks, "decode_attention": 0}
 
 
 def per_decode_step(cfg):
@@ -1978,6 +2034,438 @@ def trace_decode_step(torch, api, params, cache, tokens, position) -> None:
                                      else ()))
 
 
+# ---- phase 8: the paper's evaluation layer on the card ------------------------
+def run_long_inputs(torch, dev, spec: Spec, cfg, params):
+    """Phase 8: the memory model and MIL at the card (a), long-S kernel
+    rows, eager peaks against the model (b), a WL2-length request through
+    the solo engine's CUDA graph (c), the roofline fitted to the engine's
+    steps and, at qwen, a post-recommendation replay beside the
+    simulator's prediction (d). Returns the launches of its engine runs
+    (the 60,000-token steps and the replay's steps)."""
+    from repro_torch.core.kv_policy import MemoryModel
+    from repro_torch.runtime.hw import H100_SXM as chip
+    t0 = time.perf_counter()
+    mm = MemoryModel(cfg, chip)
+    report_mil(torch, dev, cfg, mm)
+    check_long_kernels(torch, dev, spec, cfg)
+    check_peak_memory(torch, dev, spec, cfg, params, mm)
+    launches, samples = run_long_request(torch, dev, spec, cfg, params, mm)
+    roof = calibrate_roofline(cfg, samples)
+    if spec.extra_phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        more = run_replay(torch, dev, cfg, params, mm, roof)
+        launches = {k: launches.get(k, 0) + more.get(k, 0)
+                    for k in set(launches) | set(more)}
+    print(f"{cfg.name} phase 8 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
+def report_mil(torch, dev, cfg, mm) -> None:
+    """(a) The closed-form MIL and prefix budgets at the H100; the card's
+    reported memory against the constant (within 1%); a pinned host-to-
+    device copy's rate beside the link's."""
+    chip = mm.chip
+    print(f"{cfg.name} MIL at {chip.name} ({chip.hbm_bytes} bytes x "
+          f"utilization {mm.utilization}, weights {mm.weights_bytes:.0f} "
+          f"bytes): {mm.mil_table()}; prefix_budget_tokens at WL1's "
+          f"{WL1_MAX} / WL2's {WL2_MAX} tokens: "
+          f"{mm.prefix_budget_tokens(WL1_MAX)} / "
+          f"{mm.prefix_budget_tokens(WL2_MAX)}; bytes a token: one layer's "
+          f"K/V + streams "
+          f"{mm.kv_one_layer_per_token + mm.attn_stream_per_token:.0f}, "
+          f"every layer's K/V {mm.kv_all_per_token:.0f}, MLP intermediates "
+          f"{mm.mlp_int_per_token:.0f}", flush=True)
+    total = torch.cuda.mem_get_info(dev)[1]
+    off = total / chip.hbm_bytes - 1
+    print(f"card memory: torch.cuda.mem_get_info total {total} bytes, "
+          f"{chip.name} hbm_bytes {chip.hbm_bytes} ({off * 100:+.4f}%)",
+          flush=True)
+    if abs(off) > 0.01:
+        fail(f"the card reports {total} bytes, not hbm_bytes within 1%")
+    n = HOST_COPY_BYTES
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    buf = torch.empty(n, dtype=torch.uint8, device=dev)
+    ms = []
+    for i in range(7):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        buf.copy_(host, non_blocking=True)
+        end.record()
+        end.synchronize()
+        if i >= 2:
+            ms.append(start.elapsed_time(end))
+    rate = n / (statistics.median(ms) * 1e-3)
+    print(f"host->device: pinned copy of {n} bytes at {rate / 1e9:.3f} GB/s "
+          f"(median of 5), {chip.name} host_bw {chip.host_bw / 1e9:.1f} GB/s "
+          f"(PCIe Gen5 x16, one direction)", flush=True)
+
+
+def check_long_kernels(torch, dev, spec: Spec, cfg) -> None:
+    """B2, B5 and B1 at the long-input shapes the forwards below run: each
+    kernel on the full (S, .) input, its last and first TAIL rows held
+    against the plain version (attention's tail at ``q_offset`` S - TAIL
+    over every key), timed beside its library call and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.runtime.hw import H100_SXM as chip
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(bf16)
+
+    S, H, KV, d = spec.long_lens[-1], cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    q, k, v = randn(1, S, H, d), randn(1, S, KV, d), randn(1, S, KV, d)
+    got = fa.flash_attention(q, k, v)
+    tail = compare(torch, got[:, -LONG_TAIL:], fa.flash_attention_plain(
+        q[:, -LONG_TAIL:], k, v, q_offset=S - LONG_TAIL), ATTN_BF16_TOL,
+        f"flash_attention causal S={S}, last {LONG_TAIL} rows")
+    head = compare(torch, got[:, :LONG_TAIL], fa.flash_attention_plain(
+        q[:, :LONG_TAIL], k[:, :LONG_TAIL], v[:, :LONG_TAIL]), ATTN_BF16_TOL,
+        f"flash_attention causal S={S}, first {LONG_TAIL} rows")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    del got
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v), iters=10)
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=H != KV), iters=10)
+    flops = 4.0 * d * H * S * (S + 1) / 2
+    b_ms, b_by = bound(chip, flops, 2 * (2 * S * H * d + 2 * S * KV * d))
+    splits, chunk = fa.split_rule(1, S, H, S, fa._sm_count(dev.index))
+    print(f"long kernel flash_attention[causal S={S}] [B=1 H={H} KV={KV} "
+          f"d={d} bf16, key split {splits}x{chunk} tiles]: max_abs_err last "
+          f"/ first {LONG_TAIL} rows {tail:.3e} / {head:.3e}; ms={ms:.4f} "
+          f"library_ms={lib:.4f} (SDPA) bound_ms={b_ms:.4f} ({b_by}); "
+          f"{flops / ms * 1e-9:.1f} TFLOP/s, kernel / library "
+          f"{ms / lib:.2f}", flush=True)
+    del q, k, v, qt, kt, vt
+
+    T, D, Fd = spec.long_lens[-1], cfg.d_model, cfg.d_ff
+    x = randn(T, D)
+    w = randn(D, std=0.1)
+    got = rn.rmsnorm(x, w)
+    tail = compare(torch, got[-LONG_TAIL:], rn.rmsnorm_plain(
+        x[-LONG_TAIL:], w), BF16_TOL, f"rmsnorm T={T}, last rows")
+    head = compare(torch, got[:LONG_TAIL], rn.rmsnorm_plain(
+        x[:LONG_TAIL], w), BF16_TOL, f"rmsnorm T={T}, first rows")
+    w1 = (1.0 + w.float()).to(bf16)
+    b_ms, b_by = bound(chip, 4.0 * T * D, 2 * (2 * T * D + D))
+    print(f"long kernel rmsnorm[T={T}] [D={D} bf16]: max_abs_err last / "
+          f"first {LONG_TAIL} rows {tail:.3e} / {head:.3e}; ms="
+          f"{time_ms(torch, lambda: rn.rmsnorm(x, w), iters=10):.4f} "
+          f"library_ms={time_ms(torch, lambda: F.rms_norm(x, (D,), w1, 1e-6), iters=10):.4f} "
+          f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    wg, wu = randn(D, Fd, std=D ** -0.5), randn(D, Fd, std=D ** -0.5)
+    wd = randn(Fd, D, std=Fd ** -0.5)
+    got = fm.fused_mlp(x, wg, wu, wd)
+    tail = compare(torch, got[-LONG_TAIL:], fm.fused_mlp_plain(
+        x[-LONG_TAIL:], wg, wu, wd), MLP_BF16_TOL,
+        f"fused_mlp T={T}, last rows")
+    head = compare(torch, got[:LONG_TAIL], fm.fused_mlp_plain(
+        x[:LONG_TAIL], wg, wu, wd), MLP_BF16_TOL,
+        f"fused_mlp T={T}, first rows")
+    del got
+    b_ms, b_by = bound(chip, 6.0 * T * D * Fd, 2 * (2 * T * D + 3 * D * Fd))
+    plan = fm.mlp_plan(T, D, Fd, fm._sm_count(dev.index))
+    ms = time_ms(torch, lambda: fm.fused_mlp(x, wg, wu, wd), iters=5)
+    lib = time_ms(torch, lambda: (F.silu(x @ wg) * (x @ wu)) @ wd, iters=5)
+    print(f"long kernel fused_mlp[T={T}] [D={D} F={Fd} bf16, gate/up tile "
+          f"{plan.gate_up}, {plan.splits} d_ff splits]: max_abs_err last / "
+          f"first {LONG_TAIL} rows {tail:.3e} / {head:.3e}; ms={ms:.4f} "
+          f"library_ms={lib:.4f} "
+          f"bound_ms={b_ms:.4f} ({b_by}); kernel / library {ms / lib:.2f}",
+          flush=True)
+
+
+def check_peak_memory(torch, dev, spec: Spec, cfg, params, mm):
+    """(b) Eager ``prefill`` at each S of ``spec.long_lens``, four ways:
+    ``hybrid_chunk`` as configured and 0, ``kv_keep`` 0 and MEM_KEEP. The
+    bytes allocated above what was held before the call (the weights) at
+    its peak, fitted over S (slope, intercept) beside ``MemoryModel``'s
+    (hybrid; discard where the chunk is 0) less the weights, fitted the
+    same way. Fails unless the hybrid slope lies below the chunk-0 slope
+    and within SLOPE_LIMIT of the model's, and each kept slice's bytes
+    are MEM_KEEP (or S) tokens of every layer's K/V within KEPT_TOL.
+    Returns the peaks by (chunk, kv_keep) and the (measured, model) slopes
+    of each."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.models import transformer as tfm
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    chunk = cfg.hybrid_chunk
+    ways = [(chunk, 0), (chunk, MEM_KEEP), (0, 0), (0, MEM_KEEP)]
+    lens = spec.long_lens
+
+    def peak(c, S, keep):
+        toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                             device=dev)
+        run_cfg = dataclasses.replace(cfg, hybrid_chunk=c)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            out = tfm.prefill(params, run_cfg, {"tokens": toks},
+                              kv_keep=keep)
+        torch.cuda.synchronize()
+        del out
+        return torch.cuda.max_memory_allocated() - base
+
+    t0 = time.perf_counter()
+    peak(chunk, lens[0], 0)                 # one-time allocations first
+    got = {(c, keep): [peak(c, S, keep) for S in lens] for c, keep in ways}
+    fits = {}
+    for c, keep in ways:
+        tech = "hybrid" if c else "discard"
+        model = [mm.peak_bytes(S, tech, chunk=c or chunk, kv_keep=keep)
+                 - mm.weights_bytes for S in lens]
+        m_slope, m_icpt = np.polyfit(lens, model, 1)
+        slope, icpt = np.polyfit(lens, got[(c, keep)], 1)
+        fits[(c, keep)] = (slope, m_slope)
+        print(f"{cfg.name} peak memory hybrid_chunk={c} kv_keep={keep}: "
+              f"bytes above the weights at S={list(lens)}: "
+              f"{got[(c, keep)]}; fit {slope:.1f} bytes/token + "
+              f"{icpt:.0f}; model ({tech}) {[int(b) for b in model]}, fit "
+              f"{m_slope:.1f} bytes/token + {m_icpt:.0f}; measured / model "
+              f"slope {slope / m_slope:.3f}", flush=True)
+    for c in (chunk, 0):
+        for S, with_keep, without in zip(lens, got[(c, MEM_KEEP)],
+                                         got[(c, 0)]):
+            want = min(S, MEM_KEEP) * mm.kv_all_per_token
+            kept = with_keep - without
+            print(f"{cfg.name} kept slice hybrid_chunk={c} S={S}: {kept} "
+                  f"bytes, model {want:.0f} ({kept / want - 1:+.4f})",
+                  flush=True)
+            if abs(kept / want - 1) > KEPT_TOL:
+                fail(f"the kept slice at S={S}, chunk {c}: {kept} bytes, "
+                     f"not {want:.0f} within {KEPT_TOL}")
+    hybrid, _ = fits[(chunk, 0)]
+    off, _ = fits[(0, 0)]
+    model = fits[(chunk, 0)][1]
+    print(f"{cfg.name} peak slopes: hybrid {hybrid:.1f} bytes/token, "
+          f"hybrid_chunk=0 {off:.1f}, model {model:.1f} (limit "
+          f"{SLOPE_LIMIT}x); {time.perf_counter() - t0:.1f} s", flush=True)
+    if not hybrid < off:
+        fail("hybrid prefilling does not lower the peak's slope")
+    if hybrid > SLOPE_LIMIT * model:
+        fail(f"the hybrid peak grows {hybrid:.1f} bytes a token, past "
+             f"{SLOPE_LIMIT}x the model's {model:.1f}")
+    return got, fits
+
+
+def run_long_request(torch, dev, spec: Spec, cfg, params, mm):
+    """(c) A solo engine sized by ``prefix_budget_tokens`` at WL2's longest
+    input serves two requests of WL2_MAX tokens (misses; the
+    first captures the shape key's graph, the second replays it; 49/24/24
+    or 81/40/40 launches a forward), each scored within SCORE_GATE of
+    eager ``prefill`` on the same tokens; then three fresh requests at
+    each of LONG_LENGTHS. Returns the launches of the two long steps and
+    the warm steps as (n_input, 0, seconds) samples."""
+    import numpy as np
+    from repro_torch.core.engine import EngineConfig, PrefillOnlyEngine
+    from repro_torch.core.kv_policy import bucket
+    from repro_torch.models import transformer as tfm
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 15)
+    budget = mm.prefix_budget_tokens(WL2_MAX)
+    eng = PrefillOnlyEngine(cfg, params, EngineConfig(
+        max_pack_requests=1, cache_capacity_tokens=budget), device=dev)
+    n = WL2_MAX
+    reqs = [rng.integers(0, cfg.vocab_size, n).tolist() for _ in range(2)]
+    samples, recs = [], []
+    reset_launches()                         # the long path starts here
+    for toks in reqs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rid = eng.submit(toks, allowed_tokens=(YES, NO))
+        eng.step()
+        rec, res = eng.batch_records[-1], eng.results[rid]
+        recs.append((rec, res, torch.cuda.max_memory_allocated()))
+    torch.cuda.synchronize()
+    launches = read_launches()               # the long path ends here
+    S = bucket(n, eng.ecfg.suffix_buckets)
+    expect = {k: v * eng.forwards for k, v in per_forward(cfg, S).items()}
+    for toks, (rec, res, peak) in zip(reqs, recs):
+        with torch.no_grad():
+            logits, _ = tfm.prefill(params, cfg, {"tokens": torch.tensor(
+                [toks], device=dev)})
+        sub = logits[0, [YES, NO]].double().cpu().numpy()
+        sub = np.exp(sub - sub.max())
+        sub /= sub.sum()
+        diff = max(abs(res["scores"].get(t, float("nan")) - p)
+                   for t, p in zip((YES, NO), sub))
+        print(f"{cfg.name} long request n_input={res['n_input']} S={rec.S} "
+              f"graph={graph_use(rec)} wall_ms={rec.wall * 1e3:.3f} peak "
+              f"allocated {peak} bytes (cache budget {budget} tokens, "
+              f"{eng.cache.used_blocks * eng.ecfg.block_size} held); "
+              f"P(yes)={res['scores'].get(YES)}, eager {sub[0]:.6f}, "
+              f"|diff| {diff:.3e} (gate {SCORE_GATE})", flush=True)
+        if "corrupt" in res or not diff < SCORE_GATE:
+            fail(f"the {n}-token request scored {res} against eager "
+                 f"{sub.tolist()}")
+    print(f"{cfg.name} long path launches over {eng.forwards} forwards: "
+          f"{launches} (expected {expect})", flush=True)
+    if kernel_launches(launches) != expect or [
+            r.S for r, _, _ in recs] != [S] * 2 or [
+            graph_use(r) for r, _, _ in recs] != ["captured", "replayed"]:
+        fail("the long requests did not run once each through the "
+             f"S={S} graph with every kernel once per use")
+    samples.append((n, 0, recs[1][0].wall))
+    if spec.extra_phases:                    # where a long step's time goes
+        eng.submit(rng.integers(0, cfg.vocab_size, n).tolist(),
+                   allowed_tokens=(YES, NO))
+        trace_one_step(torch, eng, "miss", {})
+    for length in LONG_LENGTHS:
+        for i in range(3):
+            eng.submit(rng.integers(0, cfg.vocab_size, length).tolist(),
+                       allowed_tokens=(YES, NO))
+            eng.step()
+            rec = eng.batch_records[-1]
+            if i and not rec.compiled:
+                samples.append((length, 0, rec.wall))
+    return launches, samples
+
+
+def calibrate_roofline(cfg, samples):
+    """(d) ``RooflineJCT``'s efficiency and fixed overhead fitted to the
+    solo engine's warm steps; prints the fit and, per length, the
+    measured median beside the calibrated and the data-sheet (efficiency
+    0.55, overhead 3 ms) predictions."""
+    from repro_torch.core.jct import RooflineJCT, fit_roofline
+    from repro_torch.runtime.hw import H100_SXM as chip
+    sheet = RooflineJCT(cfg, chip=chip)
+    roof = fit_roofline(sheet, samples)
+    by_len = {}
+    for n, _, t in samples:
+        by_len.setdefault(n, []).append(t)
+    rows = [f"{n}: {statistics.median(ts) * 1e3:.3f} / "
+            f"{roof.predict(n) * 1e3:.3f} / {sheet.predict(n) * 1e3:.3f}"
+            for n, ts in sorted(by_len.items())]
+    print(f"{cfg.name} RooflineJCT fitted to {len(samples)} warm steps: "
+          f"efficiency {roof.efficiency:.4f}, fixed_overhead "
+          f"{roof.fixed_overhead * 1e3:.3f} ms; ms measured / calibrated / "
+          f"data sheet by n_input: {'; '.join(rows)}", flush=True)
+    return roof
+
+
+def run_replay(torch, dev, cfg, params, mm, roof):
+    """(d) A reduced ``post_recommendation`` trace (REPLAY_USERS users x
+    REPLAY_POSTS posts at full token scale, every request arriving at once)
+    through ``PrefillOnlyEngine()`` (packing on) sized by the prefix budget
+    at WL1's longest input and a graph budget of REPLAY_GRAPH_BYTES, twice:
+    as drawn, then with every token id moved by one (the same lengths and
+    prefix sharing, new chains), which must replay the first pass's graphs
+    and capture none. Every score against a cold engine's; measured
+    latencies beside the simulator's for the same requests (the
+    calibrated roofline, the same cache budget, one chip), and each step's
+    wall beside the roofline's price of its request (a miss's also at its
+    bucketed S). Every step runs solo (the engine's defaults: no miss fits
+    the pack token budget, no hit's prefix the pack prefix budget), as the
+    simulator, which packs nothing, serves them. Returns the launches of
+    both passes."""
+    import numpy as np
+    from repro_torch.core.engine import EngineConfig, PrefillOnlyEngine
+    from repro_torch.core.simulator import EngineSpec, Simulator
+    from repro_torch.data.workloads import post_recommendation
+    from repro_torch.runtime.hw import H100_SXM as chip
+    budget = mm.prefix_budget_tokens(WL1_MAX)
+    kw = dict(num_users=REPLAY_USERS, posts_per_user=REPLAY_POSTS,
+              vocab=cfg.vocab_size, seed=SEED)
+    trace = post_recommendation(0.0, materialize_tokens=True, **kw)
+    V = cfg.vocab_size
+    passes = [[r.tokens for r in trace.requests],
+              [[(t + 1) % V for t in r.tokens] for r in trace.requests]]
+    eng = PrefillOnlyEngine(cfg, params, EngineConfig(
+        cache_capacity_tokens=budget, graph_memory_bytes=REPLAY_GRAPH_BYTES),
+        device=dev)
+    eng.profile()
+    cold = PrefillOnlyEngine(cfg, params, EngineConfig(
+        max_pack_requests=1, cache_capacity_tokens=0), device=dev)
+    sim = Simulator(cfg, EngineSpec("prefillonly", "srjf_calibrated",
+                                    lam=eng.ecfg.lam,
+                                    kv_budget_override=budget),
+                    total_chips=1, chip=chip, jct_model=roof)
+    sim_reqs = post_recommendation(0.0, **kw).requests
+    pred = sim.run(sim_reqs, 0.0)
+    pred_max = max(r.latency for r in sim_reqs)
+    total = {}
+    for i, toks in enumerate(passes):
+        reset_launches()                     # the replay path starts here
+        steps0, forwards0 = len(eng.batch_records), eng.forwards
+        t0 = time.perf_counter()
+        ids = [eng.submit(t, allowed_tokens=(YES, NO), now=t0) for t in toks]
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        launches = read_launches()           # the replay path ends here
+        recs = list(eng.batch_records)[steps0:]
+        expect = {k: sum(per_forward(cfg, r.S)[k] for r in recs)
+                  for k in per_forward(cfg)}
+        if (kernel_launches(launches) != expect
+                or eng.forwards - forwards0 != len(recs)):
+            fail(f"replay pass {i + 1}: launches {launches} over "
+                 f"{eng.forwards - forwards0} forwards, expected {expect}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        lats = np.array([eng.results[r]["latency"] for r in ids])
+        worst = 0.0
+        for rid, t in zip(ids, toks):
+            c = cold.submit(t, allowed_tokens=(YES, NO))
+            cold.step()
+            got, want = eng.results[rid], cold.results[c]
+            if "corrupt" in got:
+                fail(f"replay: non-finite scores {got}")
+            worst = max(worst, max(abs(got["scores"][t] - want["scores"][t])
+                                   for t in (YES, NO)))
+        hit = (sum(eng.results[r]["n_cached"] for r in ids)
+               / sum(len(t) for t in toks))
+        steps = []
+        for r in recs:
+            res = [eng.results[q] for q in r.req_ids]
+            n = sum(x["n_input"] for x in res)
+            c = sum(x["n_cached"] for x in res)
+            at_s = "" if c else f" ({roof.predict(r.S) * 1e3:.1f} at S)"
+            steps.append(f"{r.kind} {len(res)}x{n}/{c} S={r.S} "
+                         f"{r.wall * 1e3:.1f}/{roof.predict(n, c) * 1e3:.1f}"
+                         f"{at_s}")
+        print(f"{cfg.name} replay pass {i + 1}: {len(ids)} requests of "
+              f"{min(len(t) for t in toks)}-{max(len(t) for t in toks)} "
+              f"tokens in {len(recs)} steps ({sum(r.compiled for r in recs)} "
+              f"first uses); hit share {hit:.4f}; latency mean "
+              f"{lats.mean() * 1e3:.3f} ms, p50 "
+              f"{np.percentile(lats, 50) * 1e3:.3f}, max "
+              f"{lats.max() * 1e3:.3f}; simulator mean "
+              f"{pred.mean_latency * 1e3:.3f}, p50 "
+              f"{pred.p50_latency * 1e3:.3f}, max {pred_max * 1e3:.3f} "
+              f"(hit share {pred.hit_rate:.4f}); measured / simulated mean "
+              f"{lats.mean() / pred.mean_latency:.3f}; launches {launches}; "
+              f"max |score diff| vs a cold engine {worst:.3e} (gate "
+              f"{SCORE_GATE})", flush=True)
+        print(f"{cfg.name} replay pass {i + 1} steps (kind, requests x "
+              f"tokens / cached, S, wall ms / roofline ms): "
+              f"{'; '.join(steps)}", flush=True)
+        if worst >= SCORE_GATE or pred.completed != len(ids):
+            fail("replay: scores disagree with a cold engine, or the "
+                 "simulator did not serve every request")
+        if i and any(r.compiled for r in recs):
+            fail("replay: the second pass captured a graph")
+    # one more warm hit of the last user, traced: a new post on its profile
+    toks = passes[-1][-1]
+    post = len(toks) - eng.results[ids[-1]]["n_cached"]
+    eng.submit(toks[:-post] + [(t + 1) % V for t in toks[-post:]],
+               allowed_tokens=(YES, NO))
+    trace_one_step(torch, eng, "hit", {})
+    return total
+
+
+# ---- traces ------------------------------------------------------------------
 def shape_key(rec):
     return (rec.kind, rec.S, rec.Nb, rec.smax, rec.pmax)
 

@@ -69,12 +69,29 @@ class ModelConfig:
         return self.ssm_expand * self.d_model
 
     @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def has_attention(self) -> bool:
+        return self.family != "ssm"
+
+    @property
     def has_ssm(self) -> bool:
         return self.family in ("ssm", "hybrid")
 
     @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def d_ff_shared(self) -> int:
+        """FFN width of the shared attention block (hybrid family)."""
+        return self.d_ff if self.d_ff else 4 * self.d_model
 
     def param_count(self) -> int:
         """Analytic parameter count of the dense family."""
@@ -88,6 +105,11 @@ class ModelConfig:
         attn = D * (H * hd) + 2 * D * (KV * hd) + (H * hd) * D
         per_layer = attn + 3 * D * F + 2 * D
         return embed + lm_head + L * per_layer + D
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token: every one in the dense family (the
+        reference counts only the routed experts of an MoE config)."""
+        return self.param_count()
 
     def kv_bytes_per_token(self, bytes_per_el: int = 2) -> int:
         """KV-cache bytes per token across all layers (dense family)."""

@@ -1,16 +1,25 @@
 """JCT (job completion time) models — paper §6.3 (copy of ``repro.core.jct``'s
-``pearson``, ``LinearProxyJCT``, ``step_features`` and ``PackedShapeJCT``).
+``pearson``, ``LinearProxyJCT``, ``step_features``, ``PackedShapeJCT``,
+``GridJCT``, ``RooflineJCT`` and ``tp_comm_bytes_per_token``; the
+roofline's ``chip`` has no default).
 
 Prefill-only requests have deterministic JCT given (n_input, n_cached); the
 paper fits ``a * (n_input - n_cached) + b`` from a profile run and keeps it
 calibrated online. The engine also builds ``PackedShapeJCT``, which prices
 a step from its realized padded shape (the solo path's shapes included).
+``GridJCT`` regresses the profiling grid with a quadratic attention term;
+``RooflineJCT`` is the simulator's analytic model, and ``fit_roofline``
+calibrates its efficiency and fixed overhead to steps measured on a card.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.runtime.hw import ChipSpec
 
 Sample = Tuple[int, int, float]  # (n_input, n_cached, seconds)
 
@@ -190,3 +199,151 @@ class PackedShapeJCT:
 
     def coefficients(self) -> dict:
         return {name: float(c) for name, c in zip(SHAPE_FEATURES, self.coef)}
+
+
+class GridJCT:
+    """Bilinear + quadratic-attention regression over the profiling grid."""
+
+    def __init__(self):
+        self.coef = np.zeros(4)
+
+    @staticmethod
+    def _features(n_input, n_cached):
+        n_input = np.asarray(n_input, np.float64)
+        n_cached = np.asarray(n_cached, np.float64)
+        return np.stack([
+            np.ones_like(n_input),
+            n_input - n_cached,
+            n_cached,
+            (n_input ** 2 - n_cached ** 2) * 1e-6,
+        ], axis=-1)
+
+    def fit(self, samples: Sequence[Sample]) -> "GridJCT":
+        X = self._features([s[0] for s in samples], [s[1] for s in samples])
+        t = np.array([s[2] for s in samples], np.float64)
+        self.coef, *_ = np.linalg.lstsq(X, t, rcond=None)
+        return self
+
+    def predict(self, n_input: int, n_cached: int = 0) -> float:
+        return float(self._features(n_input, n_cached) @ self.coef)
+
+
+@dataclasses.dataclass
+class RooflineJCT:
+    """Analytic per-request prefill time on an instance of ``chips`` chips.
+
+    compute = linear-layer FLOPs of the miss tokens + causal-attention FLOPs
+    (quadratic over total context, discounted by the cached prefix), memory =
+    one weight sweep (batch==1 per PrefillOnly's one-at-a-time execution).
+    ``efficiency`` is the achievable MFU (calibratable); ``comm_overhead``
+    models TP all-reduce cost per token (0 for single-instance PrefillOnly).
+    """
+
+    cfg: ModelConfig
+    chips: int = 1
+    chip: ChipSpec = dataclasses.field(kw_only=True)
+    efficiency: float = 0.55
+    comm_bytes_per_token: float = 0.0   # TP: 2*(k-1)/k * d_model * 2L * bytes
+    attn_efficiency: float = 1.0        # chunked-prefill kernel penalty < 1
+    fixed_overhead: float = 0.003       # scheduling + launch
+    weight_bytes_per_param: float = 2.0  # 1.0 = fp8
+
+    def flops(self, n_input: int, n_cached: int = 0) -> float:
+        cfg = self.cfg
+        miss = max(n_input - n_cached, 0)
+        linear = 2.0 * cfg.active_param_count() * miss
+        attn = 0.0
+        if cfg.has_attention:
+            n_attn = cfg.num_layers
+            if cfg.family == "hybrid":
+                n_attn = max(1, cfg.num_layers // max(cfg.attn_every, 1))
+            w = cfg.sliding_window
+            hd, H = cfg.head_dim, cfg.num_heads
+            # causal: sum over miss tokens of context length
+            ctx_total = _causal_context_sum(n_input, n_cached, w,
+                                            local_global=cfg.local_global)
+            attn = 4.0 * n_attn * H * hd * ctx_total
+        return linear + attn
+
+    def predict(self, n_input: int, n_cached: int = 0) -> float:
+        f = self.flops(n_input, n_cached)
+        compute = f / (self.chips * self.chip.peak_flops_bf16
+                       * self.efficiency * self.attn_efficiency)
+        weight_bytes = self.weight_bytes_per_param * self.cfg.active_param_count()
+        memory = weight_bytes / (self.chips * self.chip.hbm_bw)
+        comm = 0.0
+        if self.comm_bytes_per_token:
+            miss = max(n_input - n_cached, 0)
+            comm = self.comm_bytes_per_token * miss / self.chip.ici_bw
+        return max(compute, memory) + comm + self.fixed_overhead
+
+    def samples(self, max_len: int, granularity: int = 1000) -> List[Sample]:
+        """The paper's profile run: jct over the (n_input, n_cached) grid."""
+        out = []
+        for n in range(granularity, max_len + 1, granularity):
+            for c in range(0, n, granularity):
+                out.append((n, c, self.predict(n, c)))
+        return out
+
+
+def _causal_context_sum(n_input: int, n_cached: int, window: int,
+                        local_global: bool = False) -> float:
+    """Sum of attended-context lengths for tokens n_cached..n_input-1."""
+    def full(a: int, b: int) -> float:       # sum_{i=a}^{b-1} (i+1)
+        return (b * (b + 1) - a * (a + 1)) / 2.0
+
+    def windowed(a: int, b: int, w: int) -> float:
+        total = 0.0
+        if a < w:
+            total += full(a, min(b, w))
+        if b > w:
+            total += (b - max(a, w)) * w
+        return total
+
+    if window and local_global:
+        return 0.5 * (full(n_cached, n_input)
+                      + windowed(n_cached, n_input, window))
+    if window:
+        return windowed(n_cached, n_input, window)
+    return full(n_cached, n_input)
+
+
+def tp_comm_bytes_per_token(cfg: ModelConfig, tp: int, bytes_per_el: int = 2) -> float:
+    """All-reduce bytes/token for TP-k: 2 all-reduces per layer over d_model,
+    ring cost 2*(k-1)/k of payload."""
+    if tp <= 1:
+        return 0.0
+    payload = 2 * cfg.num_layers * cfg.d_model * bytes_per_el
+    return 2.0 * (tp - 1) / tp * payload
+
+
+def fit_roofline(model: RooflineJCT,
+                 samples: Sequence[Sample]) -> RooflineJCT:
+    """``model`` with ``efficiency`` and ``fixed_overhead`` fitted to steps
+    measured on a card, ``samples`` of (n_input, n_cached, seconds); every
+    other field stays. Least squares on relative residuals (the samples
+    span orders of magnitude of wall time, and each should count alike),
+    started from the weighted linear fit of seconds on FLOPs, with the
+    efficiency held in (0, 1] and the overhead at or above 0."""
+    from scipy.optimize import least_squares
+
+    rows = [(int(n), int(c)) for n, c, _ in samples]
+    t = np.array([s[2] for s in samples], np.float64)
+    flops = np.array([model.flops(n, c) for n, c in rows])
+    rate = model.chips * model.chip.peak_flops_bf16 * model.attn_efficiency
+    A = np.stack([flops, np.ones_like(flops)], axis=1) / t[:, None]
+    (alpha, beta), *_ = np.linalg.lstsq(A, np.ones_like(t), rcond=None)
+    eff0 = (float(np.clip(1.0 / (alpha * rate), 1e-4, 1.0)) if alpha > 0
+            else model.efficiency)
+
+    def fitted(x) -> RooflineJCT:
+        return dataclasses.replace(model, efficiency=float(x[0]),
+                                   fixed_overhead=float(x[1]))
+
+    def residuals(x) -> np.ndarray:
+        m = fitted(x)
+        return np.array([m.predict(n, c) for n, c in rows]) / t - 1.0
+
+    sol = least_squares(residuals, [eff0, max(float(beta), 0.0)],
+                        bounds=([1e-4, 0.0], [1.0, np.inf]))
+    return fitted(sol.x)

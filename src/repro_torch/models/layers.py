@@ -45,9 +45,12 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return _rms.rmsnorm(x, weight, eps)
 
 
-def rope_apply(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, d), positions: (B, S) int. Split-half RoPE, f32 inside."""
+def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (B, S, H, d), positions: (B, S) int. Split-half RoPE, f32 inside,
+    each half rounded once into ``out`` (x's shape and dtype; a new tensor
+    by default, or x itself: both halves are computed before either is
+    written)."""
     d = x.shape[-1]
     half = d // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
@@ -56,8 +59,12 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor,
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    lo, hi = x1 * cos - x2 * sin, x1 * sin + x2 * cos
+    if out is None:
+        out = torch.empty_like(x)
+    out[..., :half] = lo
+    out[..., half:] = hi
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -66,7 +73,12 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor,
 
 def _qkv_project(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, chunk: int):
-    """Token-wise QKV projection + RoPE, chunked under hybrid prefilling."""
+    """Token-wise QKV projection + RoPE, chunked under hybrid prefilling.
+
+    q, k and v are views of one (B, S, (H + 2 KV) hd) buffer; RoPE is
+    applied in place a chunk at a time, so its f32 temporaries are bounded
+    by the chunk, as the projections' are (the reference's XLA fuses them
+    away)."""
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -83,8 +95,12 @@ def _qkv_project(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     q = q.reshape(B, S, H, hd)
     k = k.reshape(B, S, KV, hd)
     v = v.reshape(B, S, KV, hd)
-    q = rope_apply(q, positions, cfg.rope_theta)
-    k = rope_apply(k, positions, cfg.rope_theta)
+    step = chunk if 0 < chunk < S else S
+    for lo in range(0, S, step):
+        pos = positions[:, lo:lo + step]
+        for t in (q, k):
+            part = t[:, lo:lo + step]
+            rope_apply(part, pos, cfg.rope_theta, out=part)
     return q, k, v
 
 
@@ -118,6 +134,7 @@ def attention_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     q, k, v = _qkv_project(p, x, cfg, positions, chunk)
     out = attention(q, k, v, window=window, softcap=cfg.attn_softcap,
                     seg_q=seg_ids, seg_k=seg_ids)
+    del q
     out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
     out = chunked_map(lambda oc: oc @ p["wo"], out, chunk)
     return out, k, v

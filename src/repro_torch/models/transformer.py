@@ -52,13 +52,20 @@ def layer_params(blocks: Dict, layer: int) -> Dict:
 def _block_full(bp: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor, window: int, chunk: int,
                 seg_ids: Optional[torch.Tensor] = None):
+    """One layer over the whole sequence. The residual stream ``x`` (a
+    tensor of the forward's own) is updated in place, as XLA reuses the
+    buffer in the reference's scan, so a layer holds one stream, not three;
+    each temporary is dropped once consumed."""
     h = L.rms_norm(x, bp["ln1"])
     attn, k, v = L.attention_prefill(bp["attn"], h, cfg, positions=positions,
                                      window=window, chunk=chunk,
                                      seg_ids=seg_ids)
-    x = x + attn
+    del h
+    x += attn
+    del attn
     h = L.rms_norm(x, bp["ln2"])
-    return x + L.mlp_apply(bp["mlp"], h, chunk=chunk), (k, v)
+    x += L.mlp_apply(bp["mlp"], h, chunk=chunk)
+    return x, (k, v)
 
 
 def _kv_out(cfg: ModelConfig, B: int, keep: int, dtype, device) -> Dict:
@@ -109,14 +116,14 @@ def forward_full(params: Dict, cfg: ModelConfig, *,
         x, (k, v) = _block_full(bp, x, cfg, positions=positions,
                                 window=cfg.sliding_window, chunk=chunk,
                                 seg_ids=seg_ids)
-        if kv is None:
-            continue
-        if kv_indices is not None:
+        if kv is not None and kv_indices is not None:
             kv["k"][layer].copy_(k.index_select(1, kv_indices))
             kv["v"][layer].copy_(v.index_select(1, kv_indices))
-        else:
+        elif kv is not None:
             kv["k"][layer].copy_(k[:, :keep])
             kv["v"][layer].copy_(v[:, :keep])
+        del k, v            # this layer's full-length K/V: gone before the
+                            # next layer runs (layer-wise discard)
     return L.rms_norm(x, params["final_norm"]), kv
 
 

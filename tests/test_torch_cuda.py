@@ -767,3 +767,38 @@ def test_a_capture_that_fails_raises_and_runs_nothing_eagerly(dev):
         assert f.graph is None and f.outputs is None
     assert rn.launches == n0
     torch.cuda.synchronize()
+
+
+@pytest.fixture(scope="module")
+def qwen_peaks(dev):
+    """chip_smoke.py's peak-memory phase at full-width qwen1.5-0.5b, S 4096
+    and 8192 (four ways each: hybrid_chunk 2048 and 0, kv_keep 0 and
+    16,384); it raises if the hybrid slope is not below chunk 0's or past
+    1.5x the model's, or a kept slice is off by more than 5%."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.kv_policy import MemoryModel
+    from repro_torch.runtime.hw import H100_SXM
+    cfg = get_config("qwen1.5-0.5b")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    spec = smoke.QWEN._replace(long_lens=(4096, 8192))
+    out = smoke.check_peak_memory(torch, dev, spec, cfg, params,
+                                  MemoryModel(cfg, H100_SXM))
+    del params
+    torch.cuda.empty_cache()
+    return cfg, out
+
+
+def test_peak_memory_holds_to_the_model_on_the_card(qwen_peaks):
+    cfg, (peaks, fits) = qwen_peaks
+    slope, model = fits[(cfg.hybrid_chunk, 0)]
+    assert 0 < slope <= smoke.SLOPE_LIMIT * model
+    for S, kept, none in zip((4096, 8192), peaks[(cfg.hybrid_chunk,
+                                                  smoke.MEM_KEEP)],
+                             peaks[(cfg.hybrid_chunk, 0)]):
+        assert kept > none
+
+
+def test_hybrid_prefilling_lowers_the_peak_slope_on_the_card(qwen_peaks):
+    cfg, (_, fits) = qwen_peaks
+    assert fits[(cfg.hybrid_chunk, 0)][0] < fits[(0, 0)][0]

@@ -237,7 +237,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
     code = ("import sys, repro_torch.core.engine, repro_torch.models.params, "
-            "repro_torch.models.model, repro_torch.kernels.decode_attention; "
+            "repro_torch.models.model, repro_torch.kernels.decode_attention, "
+            "repro_torch.core.simulator, repro_torch.data.workloads, "
+            "repro_torch.core.kv_policy; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
