@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU (H100):
 
 (``--seed``, default 0, draws every weight and input from another seed.)
 It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
-then runs phases 2-8 below for each model of ``SPECS``: qwen1.5-0.5b, then
+then runs phases 2-9 below for each model of ``SPECS``: qwen1.5-0.5b, then
 granite-3-8b at full width (40 layers, d_model 4096, GQA 32/8, head_dim
 128, d_ff 12,800; qwen's weights, engines and decode cache are freed
 first), each at its own widths and shapes (``Spec``: a model's extra
@@ -123,7 +123,29 @@ checks that the refusal names its rule. It raises on the first failure:
      longer than the autotuned pack token budget and each hit's cached
      prefix longer than the pack prefix budget, so the packed modes run in
      phase 5, not here;
-  9. prints its total seconds and the ``kernels`` JSON line (every kernel
+  9. the DRAM offload tier (``run_offload``; ``EngineConfig(offload=True)``):
+     (a) one block's pinned copies each way (median of 20) beside the
+     engine's ``profile()``-measured link and ``H100_SXM.host_bw``, and the
+     break-even link at which restoring a block beats recomputing it. The
+     policy's decision at the measured link picks what follows, never the
+     model's name. Where it restores (granite): (b) two users' 1124-token
+     requests, warm hits solo and packed (B4), a flood (one miss as long as
+     the device cache) that demotes them, then the solo hit and the packed
+     hit restored (replayed graphs, scores within 1e-6 of the same
+     request's before demotion and within 2e-2 of a cold engine; every
+     replayed step moves device memory by its cache's change alone, so a
+     demoted block leaves the card); (c) the same request on an engine
+     whose explicit link is slow recomputes; (d) ``restore_estimate`` and
+     ``prefetch_prefix`` ahead of a hit, which then restores nothing on its
+     execute path, and a prefetch started inside the capture of a new
+     shape key, which waits for it (``compiled.capture_lock``); (e) a
+     16,384-token request (1,024 blocks) demoted and restored whole, its
+     restored hit beside the warm hit and a recompute, the host ms spent
+     queuing demotions and restores, and the pinned bytes the process
+     holds beside ``host.used_bytes``. Where it refuses (qwen): (c)
+     demotion, no restore, a recompute. (f) Launches per forward as in the
+     other phases;
+ 10. prints its total seconds and the ``kernels`` JSON line (every kernel
      and attention mode: qwen's row at the top level, each model's row and
      main-path launches under ``models``, ``launches`` their sum), then the
      result line ``{"ok": true, "device": {...}}`` last.
@@ -239,6 +261,19 @@ REPLAY_USERS, REPLAY_POSTS = 4, 4
 # token's K/V as a static output (1.6 GB at S 16,384, 3.2 GB at 32,768 at
 # qwen), past the default 2 GiB, which would drop and recapture them
 REPLAY_GRAPH_BYTES = 24 << 30
+# phase 9, the offload tier: two users' requests of a 1024-token profile
+# and a 100-token post (70 blocks each) in a device cache that holds the
+# two; a restored step's scores within OFF_SAME of the same request's
+# before demotion (the same graph over the same KV: equal); a link of
+# OFF_SLOW_BW bytes/s priced slow; the capture-during-prefetch key, a hit
+# over 1024 of user 0's tokens, from two prefixes of its request
+# (suffixes of 26 and 36 tokens in one S 64 key); (e) a WL1-length request
+# of OFF_LONG tokens
+OFF_PROFILE, OFF_POST = 1024, 100
+OFF_SAME = 1e-6
+OFF_SLOW_BW = 1e3
+OFF_PREFIX_CUTS = (1050, 1060)
+OFF_LONG = 16_384
 
 
 class Spec(typing.NamedTuple):
@@ -435,12 +470,15 @@ def run_model(torch, dev, spec: Spec):
     gc.collect()                  # the decode cache goes back to the card
     torch.cuda.empty_cache()
     long = run_long_inputs(torch, dev, spec, cfg, params)
-    paths = (solo, packed, decode, long)
+    gc.collect()                  # phase 8's engines go back to the card
+    torch.cuda.empty_cache()
+    offload = run_offload(torch, dev, cfg, params)
+    paths = (solo, packed, decode, long, offload)
     launches = {k: sum(p.get(k, 0) for p in paths)
                 for k in set().union(*paths)}
     print(f"{spec.arch}: main path launches (solo engine + packed engine + "
-          f"decode steps + long requests and replay): {launches}; phases "
-          f"took "
+          f"decode steps + long requests and replay + offload tier): "
+          f"{launches}; phases took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return results, launches
 
@@ -2463,6 +2501,501 @@ def run_replay(torch, dev, cfg, params, mm, roof):
                allowed_tokens=(YES, NO))
     trace_one_step(torch, eng, "hit", {})
     return total
+
+
+# ---- phase 9: the DRAM offload tier -------------------------------------------
+def run_offload(torch, dev, cfg, params):
+    """Phase 9: the offload tier (``EngineConfig(offload=True)``) on the
+    card. (a) times one block's copies each way beside the engine's
+    measured link and the data sheet's, and prints the break-even link and
+    the policy's decision after ``profile()``. Where the policy restores:
+    (b) a demote -> restore round trip through the solo and the packed hit
+    forwards, (c) the same requests on an engine with a slow explicit link,
+    which recomputes, (d) a route-time prefetch, and one started while a
+    new shape key captures, (e) one WL1-length request of OFF_LONG tokens
+    demoted and restored whole. Where it refuses: (c) demotion without a
+    restore. Every score within SCORE_GATE of a cold engine; (f) launches
+    per forward as in the earlier phases. Returns the launches of every
+    forward of the phase."""
+    import numpy as np
+    from repro_torch.core.engine import EngineConfig, PrefillOnlyEngine
+    from repro_torch.models.layers import torch_dtype
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 17)
+    engines = []
+
+    def engine(**over):
+        eng = PrefillOnlyEngine(cfg, params, EngineConfig(**over),
+                                device=dev)
+        engines.append(eng)
+        return eng
+
+    def fresh(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    reset_launches()                         # the offload path starts here
+    # room for two users' requests (OFF_PROFILE + OFF_POST tokens, 70
+    # blocks each) on the device, and for four times that on the host
+    # (the users' blocks and the flood's that their restores demote); the
+    # token-linear pricing co-packs two equal hits whenever the fit has a
+    # fixed cost
+    cap = 2 * (OFF_PROFILE + OFF_POST) // 16 * 16
+    made = time.perf_counter()
+    eng = engine(offload=True, cache_capacity_tokens=cap,
+                 host_cache_bytes=4 * cap * cfg.kv_bytes_per_token(
+                     torch_dtype(cfg.dtype).itemsize),
+                 shape_cost_model=False)
+    print(f"{cfg.name} offload engine made in "
+          f"{time.perf_counter() - made:.3f} s (host_cache_bytes "
+          f"{eng.ecfg.host_cache_bytes}, pinned for "
+          f"{eng.ecfg.host_cache_bytes // eng.block_bytes()} blocks)",
+          flush=True)
+    eng.profile()
+    restores = report_link(torch, dev, cfg, eng)
+    users = [fresh(OFF_PROFILE) + fresh(OFF_POST) for _ in range(2)]
+    cold = engine(max_pack_requests=1, cache_capacity_tokens=0)
+    if restores:
+        print(f"{cfg.name} offload: the policy restores at the measured "
+              f"link: phase 9 runs (b), (c) on a slow explicit link, (d) "
+              f"and (e)", flush=True)
+        run_restore(torch, cfg, eng, engine, cold, users, fresh, cap)
+        run_long_restore(torch, cfg, engine, fresh,
+                         eng.cache.policy.host_bw)
+    else:
+        print(f"{cfg.name} offload: the policy recomputes at the measured "
+              f"link: phase 9 runs (c)", flush=True)
+        run_recompute(torch, cfg, eng, cold, users, fresh, "(c)")
+    torch.cuda.synchronize()
+    launches = read_launches()               # the offload path ends here
+    expect, modes = tier_launch_expect(cfg, engines)
+    print(f"{cfg.name} offload (f) launches over "
+          f"{sum(e.forwards for e in engines)} forwards of {len(engines)} "
+          f"engines: {launches} (expected {expect}, segmented "
+          f"{modes['segmented']}, positioned {modes['positioned']})",
+          flush=True)
+    if (kernel_launches(launches) != expect
+            or launches["flash_attention[segmented]"] != modes["segmented"]
+            or launches["flash_attention[positioned]"]
+            != modes["positioned"]):
+        fail("the offload path did not launch every kernel once per use, "
+             "in its forward's mode")
+    print(f"{cfg.name} phase 9 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
+def tier_launch_expect(cfg, engines):
+    """Launches the engines' forwards must have made: ``per_forward`` at
+    each step's S (profile runs: one chunk), and the packed steps'
+    attention launches by mode."""
+    expect = {k: 0 for k in per_forward(cfg)}
+    modes = {"segmented": 0, "positioned": 0}
+    for eng in engines:
+        recs = list(eng.batch_records)
+        if len(recs) == eng.batch_records.maxlen:
+            fail("the step records overflowed their ring")
+        for S in [0] * (eng.forwards - len(recs)) + [r.S for r in recs]:
+            for k, v in per_forward(cfg, S).items():
+                expect[k] += v
+        for r in recs:
+            if r.n_requests > 1:
+                modes["positioned" if r.kind == "hit" else
+                      "segmented"] += cfg.num_layers
+    return expect, modes
+
+
+def report_link(torch, dev, cfg, eng) -> bool:
+    """(a) One block's copies each way (pinned host memory, the median of
+    20, CUDA events), the engine's measured link beside the data sheet's,
+    the break-even link and the policy's decision at both. Returns whether
+    the policy restores a block at the measured link."""
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.runtime.hw import H100_SXM as chip
+    pol, nb = eng.cache.policy, eng.block_bytes()
+    shape = (2, cfg.num_layers, 1, 16, cfg.num_kv_heads, cfg.head_dim)
+    block = torch.randn(shape, device=dev).to(torch_dtype(cfg.dtype))
+    host = torch.empty(shape, dtype=block.dtype, pin_memory=True)
+    ms = {}
+    for way, dst, src in (("device->host", host, block),
+                          ("host->device", block, host)):
+        times = []
+        for _ in range(20):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms[way] = statistics.median(times)
+    rate = pol.host_bw
+    print(f"{cfg.name} offload link (a): one block {nb} bytes; "
+          + "; ".join(f"{way} median {t:.4f} ms ({nb / t / 1e6:.3f} GB/s)"
+                      for way, t in ms.items())
+          + f" (median of 20); _measure_host_bw {rate / 1e9:.3f} GB/s "
+          f"beside {chip.name} host_bw {chip.host_bw / 1e9:.1f} GB/s",
+          flush=True)
+    if block.nbytes != nb or not rate > 0:
+        fail("the block's bytes or the measured link are wrong")
+    re_s = pol.recompute_seconds(cfg, 16)
+    at_sheet = nb / chip.host_bw < re_s
+    worth = pol.worth_restoring(cfg, 16, nb)
+    print(f"{cfg.name} offload break-even (a): recompute {re_s * 1e6:.2f} "
+          f"us a block; restore {nb / chip.host_bw * 1e6:.2f} us at host_bw "
+          f"(worth_restoring {at_sheet}), {pol.restore_seconds(nb) * 1e6:.2f}"
+          f" us at the measured link (worth_restoring {worth}); break-even "
+          f"link {nb / re_s / 1e9:.3f} GB/s", flush=True)
+    return worth
+
+
+class HostTimer:
+    """Host seconds of an engine's demotions (its host store's ``put``)
+    and of its execute-path matches with their restores
+    (``_match_restoring``, less the demotions of the blocks its restores
+    evict), read per step."""
+
+    def __init__(self, eng):
+        self.s = {"demote": 0.0, "restore": 0.0}
+        for key, owner, name in (("demote", eng.cache.host, "put"),
+                                 ("restore", eng, "_match_restoring")):
+            setattr(owner, name, self._wrap(key, getattr(owner, name)))
+
+    def _wrap(self, key, fn):
+        def timed(*args, **kw):
+            t, nested = time.perf_counter(), self.s["demote"]
+            try:
+                return fn(*args, **kw)
+            finally:
+                dt = time.perf_counter() - t
+                if key == "restore":
+                    dt -= self.s["demote"] - nested
+                self.s[key] += dt
+        return timed
+
+
+def tier_step(torch, eng, reqs, label: str, timer=None):
+    """Serve ``reqs`` as one step (submitted together); prints the step's
+    tier counters and checks that a replayed step changed the requested
+    device bytes by its cache's change, within less than one block (a
+    demoted block leaves the device). Returns (record, results, restored
+    blocks)."""
+    import numpy as np
+    c = eng.cache
+    tiered = hasattr(c, "host")
+
+    def counters():
+        return (c.restored_blocks if tiered else 0, c.evictions,
+                c.host.offloads if tiered else 0, c.used_blocks,
+                torch.cuda.memory_allocated(),
+                torch.cuda.memory_stats()["requested_bytes.all.current"],
+                dict(timer.s) if timer else {})
+
+    before = counters()
+    ids = [eng.submit(t, allowed_tokens=(YES, NO)) for t in reqs]
+    eng.step()
+    torch.cuda.synchronize()
+    if eng.queue or sorted(eng._last_step_ids) != sorted(ids):
+        fail(f"{label}: the requests did not run as one step")
+    after = counters()
+    rec, res = eng.batch_records[-1], [eng.results[i] for i in ids]
+    d = [a - b for a, b in zip(after[:6], before[:6])]
+    host = "".join(f" host ms {k} {1e3 * (after[6][k] - before[6][k]):.3f}"
+                   for k in after[6])
+    print(f"{eng.cfg.name} offload {label} step n={rec.n_requests} n_input="
+          f"{[r['n_input'] for r in res]} n_cached="
+          f"{[r['n_cached'] for r in res]} restored={d[0]} evicted={d[1]} "
+          f"offloaded={d[2]} S={rec.S} Nb={rec.Nb} P={rec.pmax} wall_ms="
+          f"{rec.wall * 1e3:.3f} graph={graph_use(rec)} memory_allocated "
+          f"{d[4]:+d} bytes, requested {d[5]:+d} (cache blocks {d[3]:+d} x "
+          f"{eng.block_bytes()})"
+          f"{host} P(yes)={[r['scores'].get(YES) for r in res]}",
+          flush=True)
+    for r in res:
+        if "corrupt" in r or not all(np.isfinite(list(
+                r["scores"].values()))):
+            fail(f"{label}: non-finite scores {r}")
+    # a demoted block leaves the card: a replayed step moves the device
+    # bytes requested by its cache's change, within less than one block.
+    # The allocated bytes count each block the allocator hands out whole,
+    # up to 1 MiB past the request when it does not split a cached block,
+    # so they move by up to megabytes besides (3,670,016 bytes in one step
+    # on an NVIDIA H100 80GB HBM3; PERF.md section 6)
+    if not rec.compiled and abs(d[5] - d[3] * eng.block_bytes()) \
+            >= eng.block_bytes():
+        fail(f"{label}: requested device memory moved by {d[5]} bytes, "
+             f"the cache's blocks by {d[3]}: demoted blocks stayed on the "
+             "device")
+    return rec, res, d[0]
+
+
+def score_diff(a, b) -> float:
+    return max(abs(a["scores"][t] - b["scores"][t]) for t in (YES, NO))
+
+
+def cold_scores(torch, cold, reqs):
+    """A cold engine's results for ``reqs`` (misses, one a step)."""
+    out = []
+    for t in reqs:
+        _, (res,), _ = tier_step(torch, cold, [t], "cold")
+        if res["n_cached"]:
+            fail("the cold engine hit its cache")
+        out.append(res)
+    return out
+
+
+def flood(torch, eng, fresh, label: str, timer=None) -> None:
+    """One fresh miss as long as the device cache: its insert evicts every
+    other block (the cache evicts least recently used leaves, and a chain
+    whose tail goes leaves its parent as the newest leaf, so a run of
+    shorter misses would evict the chains round robin)."""
+    n = eng.cache.capacity_blocks * eng.ecfg.block_size
+    tier_step(torch, eng, [fresh(n)], f"{label} flood", timer)
+
+
+def run_recompute(torch, cfg, eng, cold, users, fresh, label: str):
+    """(c) Where the policy refuses: user 0's request (miss, then two
+    hits), a flood that demotes it, then the request again: blocks are
+    offloaded, none restored, and the request recomputes, scored within
+    SCORE_GATE of a cold engine. Returns its record."""
+    a = users[0]
+    timer = HostTimer(eng)
+    tier_step(torch, eng, [a], f"{label} miss", timer)
+    tier_step(torch, eng, [a], f"{label} hit", timer)
+    warm, _, _ = tier_step(torch, eng, [a], f"{label} hit", timer)
+    flood(torch, eng, fresh, label, timer)
+    c = eng.cache
+    off0 = c.host.offloads
+    rec, (res,), restored = tier_step(torch, eng, [a], f"{label} again",
+                                      timer)
+    ref, = cold_scores(torch, cold, [a])
+    diff = score_diff(res, ref)
+    print(f"{cfg.name} offload {label}: link {c.policy.host_bw / 1e9:.3f} "
+          f"GB/s, worth_restoring a block "
+          f"{c.policy.worth_restoring(cfg, 16, eng.block_bytes())}; "
+          f"offloads {off0}, restored blocks {c.restored_blocks}; the "
+          f"request recomputed: n_cached={res['n_cached']} S={rec.S} wall "
+          f"{rec.wall * 1e3:.3f} ms ({graph_use(rec)}) beside its warm hit "
+          f"{warm.wall * 1e3:.3f} ms; |score - cold| {diff:.3e} (gate "
+          f"{SCORE_GATE})", flush=True)
+    if not off0 or restored or c.restored_blocks or res["n_cached"] \
+            or diff >= SCORE_GATE:
+        fail(f"{label}: expected demotion, no restore and a recompute "
+             "within the gate")
+    return rec
+
+
+def run_restore(torch, cfg, eng, engine, cold, users, fresh, cap):
+    """(b) Two users' requests served, then their hits warm (solo, then
+    both in one packed step); a flood demotes them, the solo hit restores
+    one (same graph, scores within OFF_SAME of the warm hit's), a second
+    flood, the packed hit restores both. (c) The same request on an engine
+    with a slow explicit link recomputes. (d) A prefetch ahead of the hit
+    (which then restores nothing on its execute path); then a prefetch
+    started while a new shape key captures, which must neither break the
+    capture nor be lost."""
+    from repro_torch.core import compiled
+    from repro_torch.core.prefix_cache import token_chain
+    a, b = users
+    chains = [token_chain(t, 16) for t in users]
+    timer = HostTimer(eng)
+    for t in users:
+        tier_step(torch, eng, [t], "(b) miss", timer)
+    tier_step(torch, eng, [a], "(b) hit", timer)
+    warm_a, (warm_ra,), _ = tier_step(torch, eng, [a], "(b) hit", timer)
+    tier_step(torch, eng, users, "(b) packed hit", timer)
+    warm_p, warm_rp, _ = tier_step(torch, eng, users, "(b) packed hit",
+                                   timer)
+    if warm_p.n_requests != 2 or warm_p.kind != "hit":
+        fail("(b) the two users' hits did not run as one packed hit step")
+    ref_a, ref_b = cold_scores(torch, cold, users)
+    c, nb = eng.cache, eng.block_bytes()
+
+    def demoted(label):
+        flood(torch, eng, fresh, label, timer)
+        tiers = [c.match_tiers(ch) for ch in chains]
+        if any(t != ["host"] * len(ch) for t, ch in zip(tiers, chains)):
+            fail(f"{label}: the flood left the users' blocks {tiers}")
+
+    demoted("(b)")
+    rec, (ra,), restored = tier_step(torch, eng, [a], "(b) restored hit",
+                                     timer)
+    same = score_diff(ra, warm_ra)
+    if (restored != len(chains[0]) or rec.compiled or same > OFF_SAME
+            or score_diff(ra, ref_a) >= SCORE_GATE):
+        fail(f"(b) the restored hit: {restored} blocks, graph "
+             f"{graph_use(rec)}, |score - warm| {same:.3e}")
+    demoted("(b)")
+    prec, rp, prestored = tier_step(torch, eng, users,
+                                    "(b) restored packed hit", timer)
+    psame = max(score_diff(g, w) for g, w in zip(rp, warm_rp))
+    pcold = max(score_diff(g, w) for g, w in zip(rp, (ref_a, ref_b)))
+    if (prestored != sum(map(len, chains)) or prec.compiled
+            or prec.n_requests != 2 or psame > OFF_SAME
+            or pcold >= SCORE_GATE):
+        fail(f"(b) the restored packed hit: {prestored} blocks, graph "
+             f"{graph_use(prec)}, |score - warm| {psame:.3e}")
+    # (c) the same requests on an engine whose explicit link is slow
+    slow = engine(offload=True, offload_host_bw=OFF_SLOW_BW,
+                  cache_capacity_tokens=cap, max_pack_requests=1)
+    rrec = run_recompute(torch, cfg, slow, cold, users, fresh, "(c)")
+    print(f"{cfg.name} offload (b) restored hit: {restored} blocks "
+          f"({restored * nb} bytes) restored, n_cached={ra['n_cached']}; "
+          f"wall {rec.wall * 1e3:.3f} ms beside the warm hit "
+          f"{warm_a.wall * 1e3:.3f} ms and a recompute of the same request "
+          f"{rrec.wall * 1e3:.3f} ms (slow link, S={rrec.S}, "
+          f"{graph_use(rrec)}); |score - before demotion| {same:.3e} (limit "
+          f"{OFF_SAME}), |score - cold| {score_diff(ra, ref_a):.3e} (gate "
+          f"{SCORE_GATE})", flush=True)
+    print(f"{cfg.name} offload (b) restored packed hit: {prestored} blocks "
+          f"restored, Nb={prec.Nb} pmax={prec.pmax}; wall "
+          f"{prec.wall * 1e3:.3f} ms beside the warm packed hit "
+          f"{warm_p.wall * 1e3:.3f} ms; |score - before demotion| "
+          f"{psame:.3e} (limit {OFF_SAME}), |score - cold| {pcold:.3e} "
+          f"(gate {SCORE_GATE}); no restore recaptured: every restored "
+          f"step replayed", flush=True)
+
+    # (d) a route-time prefetch ahead of user 0's hit
+    demoted("(d)")
+    est = eng.restore_estimate(chains[0])
+    t = time.perf_counter()
+    n = eng.prefetch_prefix(chains[0])
+    join_prefetch()
+    wait = time.perf_counter() - t
+    on_card = on_device(eng, chains[0])
+    print(f"{cfg.name} offload (d) prefetch of user 0: restore_estimate "
+          f"{est}; {n} blocks scheduled; {sum(on_card)} device payloads after "
+          f"the kv-prefetch thread, joined after {wait * 1e3:.3f} ms",
+          flush=True)
+    if n != len(chains[0]) or len(on_card) != n or not all(on_card):
+        fail("(d) the prefetch did not bring user 0's blocks to the card")
+    rec, (ra,), restored = tier_step(torch, eng, [a], "(d) hit after the "
+                                     "prefetch", timer)
+    if restored or rec.compiled or score_diff(ra, warm_ra) > OFF_SAME:
+        fail(f"(d) the hit after the prefetch restored {restored} blocks "
+             "on its execute path or left its graph or its scores")
+    # a prefetch of user 1 started while a new shape key captures: it waits
+    # for the capture (capture_lock). The key is a hit over 1024 of user
+    # 0's resident tokens (prefixes of its request, whose blocks are all
+    # resident: the steps insert and evict nothing), taken twice
+    posts = [a[:n] for n in OFF_PREFIX_CUTS]
+    refs = cold_scores(torch, cold, posts)
+    started = []
+    capture = compiled.CompiledForward._capture
+
+    def capture_with_prefetch(self):
+        started.append(eng.prefetch_prefix(chains[1]))
+        return capture(self)
+
+    compiled.CompiledForward._capture = capture_with_prefetch
+    try:
+        crec, (rc,), _ = tier_step(torch, eng, [posts[0]],
+                                   "(d) capture during a prefetch", timer)
+    finally:
+        compiled.CompiledForward._capture = capture
+    join_prefetch()
+    on_card = on_device(eng, chains[1])
+    brec, (rb,), brestored = tier_step(torch, eng, [b], "(d) user 1's hit",
+                                       timer)
+    rrec, (rr,), _ = tier_step(torch, eng, [posts[1]],
+                               "(d) the captured key replayed", timer)
+    diffs = [score_diff(rc, refs[0]), score_diff(rr, refs[1]),
+             score_diff(rb, ref_b)]
+    print(f"{cfg.name} offload (d) a prefetch of user 1 started inside the "
+          f"capture of S={crec.S} P={crec.pmax} ({graph_use(crec)}): "
+          f"{started} blocks scheduled, {sum(on_card)} device payloads after "
+          f"it; user 1's hit then restored {brestored} blocks on its execute "
+          f"path ({graph_use(brec)}); the key replayed ({graph_use(rrec)}); "
+          f"|score - cold| "
+          f"{', '.join(f'{x:.3e}' for x in diffs)} (gate {SCORE_GATE})",
+          flush=True)
+    if (started != [len(chains[1])] or not crec.compiled or rrec.compiled
+            or (rrec.S, rrec.pmax) != (crec.S, crec.pmax)
+            or len(on_card) != len(chains[1]) or not all(on_card)
+            or brestored or brec.compiled or max(diffs) >= SCORE_GATE
+            or any(f.graph is None for f in eng.graphs())):
+        fail("(d) the prefetch during a capture broke the capture or was "
+             "lost")
+
+
+def on_device(eng, chain):
+    """Per resident block of ``chain``: whether its payload is a tensor on
+    the engine's device (not a demoted host copy)."""
+    import torch
+    c = eng.cache
+    return [isinstance(c.blocks[h].payload, torch.Tensor)
+            and c.blocks[h].payload.device == eng.device
+            for h in chain if h in c.blocks]
+
+
+def join_prefetch() -> None:
+    import threading
+    for th in threading.enumerate():
+        if th.name == "kv-prefetch":
+            th.join(timeout=300)
+            if th.is_alive():
+                fail("a kv-prefetch thread did not end")
+
+
+def run_long_restore(torch, cfg, engine, fresh, link: float) -> None:
+    """(e) One WL1-length request of OFF_LONG tokens (its OFF_LONG / 16
+    blocks cached) on an engine whose device cache holds it and whose host
+    store holds twice it, at the link this run measured: a warm hit, a
+    flood that demotes it, the restored hit (same graph, scores within
+    OFF_SAME of the warm hit's), a second flood, then the request
+    recomputed once the link is priced slow."""
+    from repro_torch.core.prefix_cache import token_chain
+    from repro_torch.models.layers import torch_dtype
+    gc.collect()
+    torch.cuda.empty_cache()
+    nblk = OFF_LONG // 16
+    nb = 16 * cfg.kv_bytes_per_token(torch_dtype(cfg.dtype).itemsize)
+    host_bytes = 2 * nblk * nb
+    made = time.perf_counter()
+    eng = engine(offload=True, offload_host_bw=link, max_pack_requests=1,
+                 cache_capacity_tokens=OFF_LONG, host_cache_bytes=host_bytes,
+                 graph_memory_bytes=REPLAY_GRAPH_BYTES)
+    made = time.perf_counter() - made
+    timer = HostTimer(eng)
+    r = fresh(OFF_LONG)
+    chain = token_chain(r, 16)
+    tier_step(torch, eng, [r], "(e) miss", timer)
+    tier_step(torch, eng, [r], "(e) hit", timer)
+    warm, (wr,), _ = tier_step(torch, eng, [r], "(e) hit", timer)
+    flood(torch, eng, fresh, "(e)", timer)
+    if eng.cache.match_tiers(chain) != ["host"] * nblk:
+        fail("(e) the flood did not demote the whole request")
+    c = eng.cache
+    rec, (rr,), restored = tier_step(torch, eng, [r], "(e) restored hit",
+                                     timer)
+    same = score_diff(rr, wr)
+    stats = (torch.cuda.host_memory_stats()
+             if hasattr(torch.cuda, "host_memory_stats") else {})
+    pinned = {k: stats.get(k, "not reported")
+              for k in ("allocated_bytes.current", "active_bytes.current")}
+    flood(torch, eng, fresh, "(e)", timer)
+    c.policy.host_bw = OFF_SLOW_BW
+    rrec, (rc,), rrestored = tier_step(torch, eng, [r], "(e) recomputed",
+                                       timer)
+    print(f"{cfg.name} offload (e) a {OFF_LONG}-token request ({nblk} blocks"
+          f", {nblk * nb} bytes; host_cache_bytes {host_bytes}, "
+          f"cache_capacity_tokens {OFF_LONG}, link "
+          f"{link / 1e9:.3f} GB/s; engine made in {made:.3f} s, its host "
+          f"tier's pinned memory reserved): restored {restored} blocks; "
+          f"restored "
+          f"hit wall {rec.wall * 1e3:.3f} ms ({graph_use(rec)}) beside the "
+          f"warm hit {warm.wall * 1e3:.3f} ms and the request recomputed "
+          f"{rrec.wall * 1e3:.3f} ms (S={rrec.S}, {graph_use(rrec)}, link "
+          f"priced {OFF_SLOW_BW:g} B/s); host ms queuing demotions "
+          f"{timer.s['demote'] * 1e3:.3f} and restores "
+          f"{timer.s['restore'] * 1e3:.3f} over the phase; pinned host "
+          f"bytes the process holds {pinned} beside host.used_bytes "
+          f"{c.host.used_bytes} ({c.host.stats()['blocks']} blocks); "
+          f"|score - before demotion| {same:.3e} (limit {OFF_SAME}), "
+          f"recomputed |score - warm| {score_diff(rc, wr):.3e} (gate "
+          f"{SCORE_GATE})", flush=True)
+    if (restored != nblk or rec.compiled or same > OFF_SAME or rrestored
+            or rc["n_cached"] or score_diff(rc, wr) >= SCORE_GATE):
+        fail("(e) the long request's round trip failed")
 
 
 # ---- traces ------------------------------------------------------------------

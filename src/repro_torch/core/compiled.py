@@ -43,12 +43,18 @@ Rules a caller keeps:
 - **Memory.** ``held_bytes`` is what a forward keeps alive between calls:
   its own static inputs and its static outputs. The engine bounds the sum
   over its forwards and drops the least recently used past it.
+- **Other threads.** A capture in CUDA's global error mode fails when any
+  thread of the process synchronises or allocates meanwhile, and the
+  warm-up's sync debug mode is the process's. A first use holds
+  ``capture_lock`` over both; a thread that issues device work beside the
+  caller's (the offload tier's prefetch) holds it over that work.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
 import gc
+import threading
 import time
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
@@ -62,6 +68,9 @@ from repro_torch.kernels import rmsnorm as _rms
 
 Spec = Tuple[Tuple[int, ...], torch.dtype]     # (shape, dtype) of one input
 _COUNTED = {"rmsnorm": _rms, "fused_mlp": _mlp, "decode_attention": _da}
+# held over every warm-up and capture, and by any thread's device work
+# beside them (see the module docstring)
+capture_lock = threading.Lock()
 
 
 class CaptureError(RuntimeError):
@@ -210,11 +219,12 @@ class CompiledForward:
         """Warm up, capture, keep the capture's launch counts; the counters
         end where they started. Raises ``CaptureError``."""
         before = read_launches()
-        t0 = time.perf_counter()
         try:
-            self._warm_up()
-            warm = read_launches()
-            graph, outputs = self._capture()
+            with capture_lock:
+                t0 = time.perf_counter()
+                self._warm_up()
+                warm = read_launches()
+                graph, outputs = self._capture()
             captured = _diff(read_launches(), warm)
         except Exception as e:
             # a failed capture leaves the pool unusable: every later call

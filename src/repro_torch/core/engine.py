@@ -1,6 +1,6 @@
 """PrefillOnly engine — the real-compute serving loop (paper §3).
 
-Port of ``repro.core.engine`` without the DRAM offload tier:
+Port of ``repro.core.engine``:
 
   profile run   -> JCT model fit (+ packing autotune)
   submit()      -> hash-chain the request, enqueue
@@ -36,13 +36,26 @@ inputs and outputs are held under ``graph_memory_bytes``; the least
 recently used forward goes first.
 The first use of a shape key (warm-up and capture, which includes building
 the CUDA kernels on a fresh checkout) is flagged ``_step_compiled`` and is
-not a JCT sample, as a jit compile is not in the reference. The DRAM
-offload tier (``offload=True``) comes with a later slice and raises here.
+not a JCT sample, as a jit compile is not in the reference.
+
+The DRAM offload tier (``offload=True``, paper §9; ``core/offload.py``):
+prefix blocks evicted from the device cache demote to pinned host memory,
+and a match restores them when the policy prices the copy back below a
+recompute. The execution path copies every matched block still on the host
+to the device on the engine's stream before a forward reads it
+(``_match_restoring``); a route-time ``prefetch_prefix`` does the same
+ahead of the step, on a side stream of a ``kv-prefetch`` thread that holds
+``compiled.capture_lock`` so that it never runs beside a capture. The
+engine pins its host tier's memory when it is made
+(``_reserve_host_memory``), so that no step pays for growing it. The
+engine's steps run on the device's default stream (the current stream of a
+thread that set none).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import statistics
 import threading
 import time
 from collections import OrderedDict, deque
@@ -52,9 +65,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import compiled as _compiled
 from repro_torch.core.compiled import CompiledForward, side_stream
 from repro_torch.core.jct import LinearProxyJCT, PackedShapeJCT, Sample
 from repro_torch.core.kv_policy import KVLifecycle, bucket as _bucket
+from repro_torch.core.offload import (HostKV, HostKVStore, OffloadPolicy,
+                                      TieredPrefixCache, to_device)
 from repro_torch.core.prefix_cache import PrefixCache, token_chain
 from repro_torch.core.scheduler import Request, Scheduler
 from repro_torch.models import transformer as tfm
@@ -62,6 +78,7 @@ from repro_torch.models.layers import PAD_POS, torch_dtype
 from repro_torch.models.params import cast_params
 from repro_torch.runtime.device import DeviceLike, resolve_device
 from repro_torch.runtime.fault_tolerance import NaNGuard
+from repro_torch.runtime.hw import H100_SXM
 from repro_torch.serving.tracing import BatchRecord, JCTCalibrationMonitor
 
 
@@ -98,14 +115,20 @@ class EngineConfig:
                                        # forwards may hold between steps
                                        # (static inputs and outputs); the
                                        # least recently used go past it
-    offload: bool = False              # DRAM tier: comes with the offload
-                                       # slice
-
-    def __post_init__(self):
-        if self.offload:
-            raise NotImplementedError(
-                "offload=True (DRAM KV tier) comes with the offload slice of "
-                "the port")
+    offload: bool = False              # DRAM tier: evicted prefix blocks
+                                       # demote to a HostKVStore instead of
+                                       # being discarded (paper §9)
+    host_cache_bytes: int = 256 << 20  # DRAM tier capacity per instance
+    offload_host_bw: Optional[float] = None
+                                       # override the OffloadPolicy's link
+                                       # bandwidth (bytes/s). None = the
+                                       # ChipSpec value, later replaced by
+                                       # profile()'s measured bandwidth.
+                                       # The worth_restoring economics are
+                                       # priced for the TARGET chip, so CPU
+                                       # runs of reduced models pass a large
+                                       # value here to force the restore
+                                       # path.
 
 
 class PrefillOnlyEngine:
@@ -131,8 +154,19 @@ class PrefillOnlyEngine:
         self.kv = KVLifecycle(block_size=ecfg.block_size,
                               kv_keep_tokens=ecfg.kv_keep_tokens,
                               buckets=ecfg.suffix_buckets)
-        self.cache = PrefixCache(ecfg.cache_capacity_tokens // ecfg.block_size,
-                                 ecfg.block_size)
+        if ecfg.offload:
+            # hierarchical KV memory: device blocks demote to pinned host
+            # memory on eviction, restore on match when cheaper than
+            # recompute (priced for the H100)
+            self.cache: PrefixCache = TieredPrefixCache(
+                ecfg.cache_capacity_tokens // ecfg.block_size,
+                ecfg.block_size,
+                host_store=HostKVStore(ecfg.host_cache_bytes), cfg=cfg,
+                policy=OffloadPolicy(H100_SXM, host_bw=ecfg.offload_host_bw))
+        else:
+            self.cache = PrefixCache(
+                ecfg.cache_capacity_tokens // ecfg.block_size,
+                ecfg.block_size)
         self.jct_model = LinearProxyJCT()
         # shape-aware step pricing: batch formation admits by marginal
         # padded-shape cost; routers/admission/Algorithm-1 keep the
@@ -161,6 +195,11 @@ class PrefillOnlyEngine:
         cuda = self.device.type == "cuda"
         self._graph_pool = torch.cuda.graph_pool_handle() if cuda else None
         self._graph_stream = side_stream(self.device.index) if cuda else None
+        # the prefetch's host-to-device copies
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if cuda and ecfg.offload else None)
+        if cuda and ecfg.offload:
+            self._reserve_host_memory()
         # the prefix buffer (k and v, flat) of every new hit forward: each
         # reads a view of its front, written just before its call
         self._prefix_store: Optional[Dict[str, torch.Tensor]] = None
@@ -220,9 +259,63 @@ class PrefillOnlyEngine:
                 self._sync()
                 samples.append((n, 0, time.perf_counter() - t0))
         self.jct_model.fit(samples)
+        if (isinstance(self.cache, TieredPrefixCache)
+                and self.ecfg.offload_host_bw is None):
+            # price restores at THIS link's measured copy rate, not the
+            # ChipSpec constant; an explicit offload_host_bw wins
+            self.cache.policy.host_bw = self._measure_host_bw()
         if self.ecfg.autotune_pack:
             self.autotune_packing(ref_len=max(lengths))
         return self.jct_model.pearson_r
+
+    def _reserve_host_memory(self) -> None:
+        """Pin host memory for as many block payloads as the host tier
+        holds, and hand it back to PyTorch's caching host allocator at
+        once: a demotion then takes a cached pinned block, where it would
+        otherwise pay ``cudaHostAlloc`` inside the step that evicts (0.8 ms
+        a block of qwen1.5-0.5b and 1.6 ms of granite-3-8b on an NVIDIA
+        H100 80GB HBM3 host, against 0.06 ms for a cached one; PERF.md
+        section 6)."""
+        cfg = self.cfg
+        shape = (2, cfg.num_layers, 1, self.ecfg.block_size,
+                 cfg.num_kv_heads, cfg.head_dim)
+        n = self.ecfg.host_cache_bytes // self.block_bytes()
+        pinned = [torch.empty(shape, dtype=torch_dtype(cfg.dtype),
+                              pin_memory=True) for _ in range(n)]
+        del pinned
+
+    def block_bytes(self) -> int:
+        """Bytes of one cache block's payload (k and v, every layer)."""
+        return self.ecfg.block_size * self.cfg.kv_bytes_per_token(
+            torch_dtype(self.cfg.dtype).itemsize)
+
+    def _measure_host_bw(self, reps: int = 9) -> float:
+        """The host<->device rate (bytes/s) the tier pays: copies of one
+        block's payload between pinned host memory and the device, each way
+        ``reps`` times; two payloads over the sum of the two directions'
+        medians. Timed with CUDA events (on the CPU, the host clock)."""
+        n = self.block_bytes()
+        cuda = self.device.type == "cuda"
+        dev = torch.empty(n, dtype=torch.uint8, device=self.device)
+        host = torch.empty(n, dtype=torch.uint8, pin_memory=cuda)
+        medians = []
+        for dst, src in ((host, dev), (dev, host)):
+            times = []
+            for _ in range(reps):
+                if not cuda:
+                    t0 = time.perf_counter()
+                    dst.copy_(src)
+                    times.append(time.perf_counter() - t0)
+                    continue
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                dst.copy_(src, non_blocking=True)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end) * 1e-3)
+            medians.append(statistics.median(times))
+        return 2.0 * n / max(sum(medians), 1e-9)
 
     def autotune_packing(self, ref_len: int) -> Tuple[int, int]:
         """Tune ``pack_token_budget`` / ``max_pack_requests`` from the fitted
@@ -339,6 +432,84 @@ class PrefillOnlyEngine:
         still co-pack). Takes effect at the next batch formation."""
         with self.lock:
             self.degraded = bool(flag)
+
+    # ---- DRAM offload tier (paper §9) ---------------------------------------
+    def _match_restoring(self, chain: Tuple[int, ...]) -> int:
+        """``match_blocks(touch=True)`` of the execution path. On the tiered
+        cache the match may restore blocks from the host store; every
+        matched block whose payload is still on the host (restored here or
+        by a prefetch not yet through) is then copied to the device on the
+        current stream, so the forward reads device tensors only. Call
+        under the engine lock."""
+        c = self.cache
+        if not isinstance(c, TieredPrefixCache):
+            return c.match_blocks(chain, touch=True)
+        matched = c.match_blocks(chain, now=time.perf_counter(), touch=True)
+        for h in chain[:matched]:
+            blk = c.blocks[h]
+            blk.payload = to_device(blk.payload, self.device)
+        return matched
+
+    def restore_estimate(self, chain: Tuple[int, ...]) -> Dict[str, float]:
+        """Restorable host-tier continuation of ``chain`` and its priced
+        transfer time (admission folds ``restore_s`` into the JCT bound, a
+        route-time prefetch starts on ``blocks``). Zeros on an un-tiered
+        engine."""
+        c = self.cache
+        if not isinstance(c, TieredPrefixCache):
+            return {"device_blocks": 0, "blocks": 0, "bytes": 0,
+                    "restore_s": 0.0}
+        with self.lock:
+            return c.restore_estimate(chain)
+
+    def prefetch_prefix(self, chain: Tuple[int, ...]) -> int:
+        """Asynchronous restore of ``chain``'s restorable continuation,
+        started at routing time (the router knows the usable prefix before
+        the forward runs). Returns the blocks scheduled (0: nothing
+        restorable, or no tier). A ``kv-prefetch`` daemon thread restores
+        them into the device tier under the lock, then copies their
+        payloads to the device outside it (``_prefetch_worker``)."""
+        c = self.cache
+        if not isinstance(c, TieredPrefixCache):
+            return 0
+        with self.lock:
+            est = c.restore_estimate(chain)
+        if not est["blocks"]:
+            return 0
+        threading.Thread(target=self._prefetch_worker, args=(tuple(chain),),
+                         daemon=True, name="kv-prefetch").start()
+        return int(est["blocks"])
+
+    def _prefetch_worker(self, chain: Tuple[int, ...]) -> None:
+        """Restore ``chain`` under the lock, copy the restored payloads to
+        the device on the copy stream outside it, wait for the copies, then
+        swap each in under the lock where the block still holds the host
+        payload copied (an execute-path match may have copied it first).
+        The whole of it holds ``capture_lock``: the restore may demote
+        (pinned allocations, device-to-host copies), and neither it nor the
+        copies may run beside a capture."""
+        c = self.cache
+        with _compiled.capture_lock:
+            with self.lock:
+                r0 = c.restored_blocks
+                matched = c.match_blocks(chain, now=time.perf_counter(),
+                                         touch=True)
+                blocks = c.restored_blocks - r0
+                hs = chain[matched - blocks:matched] if blocks else ()
+                host = [(h, c.blocks[h].payload) for h in hs
+                        if isinstance(c.blocks[h].payload, HostKV)]
+            if not host:
+                return
+            dev = [(h, p, to_device(p, self.device, self._copy_stream))
+                   for h, p in host]
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+            done.synchronize()
+            with self.lock:
+                for h, p, payload in dev:
+                    blk = c.blocks.get(h)
+                    if blk is not None and blk.payload is p:
+                        blk.payload = payload
 
     def step(self) -> Optional[int]:
         """One scheduling step: pick (Algorithm 1), form a batch, prefill,
@@ -583,7 +754,7 @@ class PrefillOnlyEngine:
         # cache probe + pin under the lock; the forward itself runs outside
         # it so router/admission probes never block on compute
         with self.lock:
-            matched = self.cache.match_blocks(r.chain, touch=True)
+            matched = self._match_restoring(r.chain)
             prefix_len = self._usable_prefix_len(r.n_input, matched)
             use_blocks = prefix_len // bs
             r.n_cached_at_start = prefix_len
@@ -642,7 +813,7 @@ class PrefillOnlyEngine:
         prefs: List[Tuple[int, List, int]] = []
         with self.lock:
             for r in batch:
-                matched = self.cache.match_blocks(r.chain, touch=True)
+                matched = self._match_restoring(r.chain)
                 plen = self._usable_prefix_len(r.n_input, matched)
                 r.n_cached_at_start = plen
                 payloads = []
@@ -940,14 +1111,15 @@ class PrefillOnlyEngine:
 _DTYPES = {np.dtype(np.int64): torch.long, np.dtype(np.int32): torch.int32}
 
 
-def _block_copy(kv: Dict, lo: int, bs: int):
-    """One cache block's ``(k, v)`` payload: a copy of kept tokens [lo, lo
-    + bs) of a forward's (L, 1, keep, KV, hd) KV, k and v stacked in one
-    allocation and one launch. The kept KV is a static output of the
-    forward's graph, which the next replay overwrites, so blocks are copied
-    out before the step ends."""
-    kv2 = torch.stack([kv["k"][:, :, lo:lo + bs], kv["v"][:, :, lo:lo + bs]])
-    return kv2[0], kv2[1]
+def _block_copy(kv: Dict, lo: int, bs: int) -> torch.Tensor:
+    """One cache block's payload: a copy of kept tokens [lo, lo + bs) of a
+    forward's (L, 1, keep, KV, hd) KV, k and v stacked as one (2, L, 1, bs,
+    KV, hd) tensor (``payload[0]`` is k, ``payload[1]`` v) in one
+    allocation and one launch, which the offload tier demotes and restores
+    whole. The kept KV is a static output of the forward's graph, which the
+    next replay overwrites, so blocks are copied out before the step
+    ends."""
+    return torch.stack([kv["k"][:, :, lo:lo + bs], kv["v"][:, :, lo:lo + bs]])
 
 
 def _cat_blocks(payloads: Sequence, part: int,

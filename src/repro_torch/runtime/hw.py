@@ -27,7 +27,9 @@ class ChipSpec:
 # (450 GB/s a direction), PCIe Gen5 x16 64 GB/s a direction. hbm_bytes is
 # what the card reports as its total (torch.cuda.mem_get_info on an NVIDIA
 # H100 80GB HBM3), which chip_smoke.py checks; host_bw is the link's rate,
-# which chip_smoke.py prints beside a pinned host-to-device copy it times.
+# which chip_smoke.py prints beside the pinned copies it times, and which
+# prices the offload tier's restores until the engine's profile() measures
+# the link.
 H100_SXM = ChipSpec(
     name="h100-sxm",
     peak_flops_bf16=989e12,
@@ -49,8 +51,3 @@ def memory_seconds(bytes_moved: float, chip: ChipSpec) -> float:
 def collective_seconds(bytes_moved: float, chip: ChipSpec,
                        chips: int = 1) -> float:
     return bytes_moved / (chips * chip.ici_bw)
-
-
-def host_transfer_seconds(bytes_moved: float, chip: ChipSpec) -> float:
-    """Host<->device copy time over the PCIe link (offload tier)."""
-    return bytes_moved / chip.host_bw

@@ -10,8 +10,9 @@ RMSNorm the vector kernel's plans and the scalar kernel's widths), the
 engine on the card, solo and packed, against the same
 engine on the CPU, the engine's CUDA graphs (a replay's logits and kept KV
 against an eager run of the same forward on the same inputs, bit for bit:
-the same kernels and launch plans, no atomics) and the decode chain on the
-card against the CPU. The module needs no JAX. On a host without CUDA every test skips. Run on a GPU
+the same kernels and launch plans, no atomics), the decode chain on the
+card against the CPU, and the offload tier (pinned demotions, a bitwise
+round trip, a prefetch during a capture). The module needs no JAX. On a host without CUDA every test skips. Run on a GPU
 machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -24,6 +25,7 @@ the repo's 2e-2 gate.
 """
 import importlib.util
 import pathlib
+import threading
 import traceback
 
 import numpy as np
@@ -31,8 +33,9 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduce_config
-from repro_torch.core import compiled
+from repro_torch.core import compiled, offload
 from repro_torch.core.engine import EngineConfig, PrefillOnlyEngine
+from repro_torch.core.prefix_cache import token_chain
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_mlp as fm
@@ -802,3 +805,132 @@ def test_peak_memory_holds_to_the_model_on_the_card(qwen_peaks):
 def test_hybrid_prefilling_lowers_the_peak_slope_on_the_card(qwen_peaks):
     cfg, (_, fits) = qwen_peaks
     assert fits[(cfg.hybrid_chunk, 0)][0] < fits[(0, 0)][0]
+
+
+# ---- the DRAM offload tier --------------------------------------------------------
+# the CPU twins' settings; a 4 MiB host tier (the engine pins its blocks
+# when it is made)
+_TIER = dict(cache_capacity_tokens=64, offload=True, offload_host_bw=1e18,
+             prefix_bucket_blocks=1, max_pack_requests=1,
+             host_cache_bytes=4 << 20)
+
+
+def _tier_engine(dev, **over):
+    cfg = reduce_config(get_config("qwen1.5-0.5b"), hybrid_chunk=0)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    return cfg, PrefillOnlyEngine(cfg, params, EngineConfig(
+        **dict(_TIER, **over)), device=dev)
+
+
+def _tier_serve(eng, reqs):
+    out = []
+    for t in reqs:
+        rid = eng.submit(t, allowed_tokens=(5, 9))
+        eng.step()
+        out.append(eng.results[rid])
+    return out
+
+
+def test_demoted_payloads_are_pinned_host_tensors(dev):
+    """The engine pins its host tier when it is made; evicted blocks demote
+    to pinned host tensors (one per block, k and v stacked), the device
+    tier holds device tensors only, and the request restored from the host
+    scores within the gate of a cold engine."""
+    cfg, eng = _tier_engine(dev)
+    held = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+    assert held >= eng.ecfg.host_cache_bytes
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, 40).tolist()
+    flood = [rng.integers(0, cfg.vocab_size, 40).tolist() for _ in range(6)]
+    _tier_serve(eng, [toks] + flood)
+    torch.cuda.synchronize()
+    store = eng.cache.host._store
+    assert len(store) == eng.cache.host.offloads > 0
+    for p in store.values():
+        assert isinstance(p, offload.HostKV)
+        assert p.kv.device.type == "cpu" and p.kv.is_pinned()
+        assert p.kv.shape[0] == 2 and p.nbytes == eng.block_bytes()
+    assert all(b.payload.is_cuda for b in eng.cache.blocks.values())
+    got, = _tier_serve(eng, [toks])
+    assert eng.cache.restored_blocks > 0 and got["n_cached"] > 0
+    assert all(b.payload.is_cuda for b in eng.cache.blocks.values())
+    cold = PrefillOnlyEngine(cfg, eng.params, EngineConfig(
+        cache_capacity_tokens=0), device=dev)
+    want, = _tier_serve(cold, [toks])
+    for t in (5, 9):
+        assert abs(got["scores"][t] - want["scores"][t]) < 2e-2
+
+
+def test_demote_then_restore_is_bitwise_equal(dev):
+    """A block demoted and restored at once (no synchronisation between)
+    comes back bit for bit, through the engine's execute path on its
+    stream and through a copy on another stream, which waits on the
+    demotion's event; a 64 MiB payload makes the copy long enough that a
+    missing wait would read it unfinished."""
+    cfg, eng = _tier_engine(dev)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, 40).tolist()
+    _tier_serve(eng, [toks])
+    chain = token_chain(toks, eng.ecfg.block_size)
+    c = eng.cache
+    before = [c.blocks[h].payload.clone() for h in chain[:2]]
+    while chain[0] in c.blocks:
+        assert c._evict_one()
+    with eng.lock:
+        assert eng._match_restoring(chain) == 2
+    after = [c.blocks[h].payload for h in chain[:2]]
+    torch.cuda.synchronize()
+    for a, b in zip(after, before):
+        assert a.is_cuda and torch.equal(a, b)
+    x = torch.randn(16 << 20, device=dev)
+    side = torch.cuda.Stream(dev)
+    y = offload.to_device(offload.to_host(x), dev, side)
+    torch.cuda.synchronize()
+    assert torch.equal(x, y)
+
+
+def test_a_prefetch_during_a_capture_waits_for_it(dev, monkeypatch):
+    """A prefetch started inside a capture (at ``_capture``, with the
+    first use holding ``capture_lock``) runs after it: the capture holds,
+    the forward replays later, and the prefetched blocks reach the card,
+    so the hit that follows restores nothing on its execute path. The
+    cache has room for every request, so no step evicts what another
+    restores, in whatever order the prefetch and the step's insert take
+    the engine lock; the blocks are demoted by hand."""
+    cfg, eng = _tier_engine(dev, cache_capacity_tokens=4096)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab_size, 40).tolist()
+    _tier_serve(eng, [toks])
+    chain = token_chain(toks, eng.ecfg.block_size)
+    while chain[0] in eng.cache.blocks:
+        assert eng.cache._evict_one()
+    assert eng.cache.match_tiers(chain) == ["host"] * 2
+    started = []
+    capture = compiled.CompiledForward._capture
+
+    def capture_with_prefetch(self):
+        started.append(eng.prefetch_prefix(chain))
+        return capture(self)
+
+    monkeypatch.setattr(compiled.CompiledForward, "_capture",
+                        capture_with_prefetch)
+    new = [rng.integers(0, cfg.vocab_size, 100).tolist() for _ in range(2)]
+    first, = _tier_serve(eng, new[:1])        # a new shape key: S 128
+    monkeypatch.undo()
+    for th in threading.enumerate():
+        if th.name == "kv-prefetch":
+            th.join(timeout=60)
+            assert not th.is_alive()
+    assert started and started[0] > 0 and eng.batch_records[-1].compiled
+    assert all(f.graph is not None for f in eng.graphs())
+    second, = _tier_serve(eng, new[1:])       # the captured key replays
+    assert not eng.batch_records[-1].compiled
+    assert eng.cache.restored_blocks >= started[0]
+    r0 = eng.cache.restored_blocks
+    got, = _tier_serve(eng, [toks])
+    assert eng.cache.restored_blocks == r0 and got["n_cached"] > 0
+    cold = PrefillOnlyEngine(cfg, eng.params, EngineConfig(
+        cache_capacity_tokens=0), device=dev)
+    for res, t in zip((first, second, got), new + [toks]):
+        want, = _tier_serve(cold, [t])
+        for tok in (5, 9):
+            assert abs(res["scores"][tok] - want["scores"][tok]) < 2e-2

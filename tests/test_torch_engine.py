@@ -162,15 +162,14 @@ def test_profile_run_fits_linear_model(setup):
 
 
 def test_engine_config_rejects_later_slices():
-    """The offload tier still raises; packing runs, with the reference's
-    defaults."""
-    with pytest.raises(NotImplementedError):
-        EngineConfig(offload=True)
+    """Packing and the offload tier take the reference's defaults."""
     got, want = EngineConfig(), jengine.EngineConfig()
     for name in ("max_pack_requests", "pack_token_budget",
                  "pack_prefix_budget", "prefix_buckets", "autotune_pack",
-                 "pack_inflation", "shape_cost_model", "shape_pad_discount"):
+                 "pack_inflation", "shape_cost_model", "shape_pad_discount",
+                 "offload", "host_cache_bytes", "offload_host_bw"):
         assert getattr(got, name) == getattr(want, name), name
+    assert EngineConfig(offload=True).offload
     assert EngineConfig(max_pack_requests=2).max_pack_requests == 2
 
 
