@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU (H100):
 
 (``--seed``, default 0, draws every weight and input from another seed.)
 It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
-then runs phases 2-9 below for each model of ``SPECS``: qwen1.5-0.5b, then
+then runs phases 2-10 below for each model of ``SPECS``: qwen1.5-0.5b, then
 granite-3-8b at full width (40 layers, d_model 4096, GQA 32/8, head_dim
 128, d_ff 12,800; qwen's weights, engines and decode cache are freed
 first), each at its own widths and shapes (``Spec``: a model's extra
@@ -145,7 +145,34 @@ checks that the refusal names its rule. It raises on the first failure:
      holds beside ``host.used_bytes``. Where it refuses (qwen): (c)
      demotion, no restore, a recompute. (f) Launches per forward as in the
      other phases;
- 10. prints its total seconds and the ``kernels`` JSON line (every kernel
+ 10. the serving plane (``run_serving``; ``repro_torch.launch.serve`` and
+     ``repro_torch.serving``): ``make_pool`` instances over the model's
+     weights, two on the card, one worker thread each, behind the port's
+     ``serve_trace`` or ``AsyncServer``. qwen: (a) WL1 at full token scale
+     (4 users x 4 posts at 4 qps, profiled instances warmed on the trace's
+     shape keys, least-backlog routing, admission on; cache and graph
+     memory sizes printed); (b) WL1 at a twentieth of its token scale, 8 x
+     8 at 500 qps, packed-miss and packed-hit steps through the server
+     (autotuned budgets printed); (c) (b)'s trace under a seeded
+     ``ChaosConfig`` (a step crash, stragglers, NaN corruption; retry on),
+     every future resolved once and each served score within 2e-2 of
+     (b)'s. granite: (d) the offload tier's serving side through
+     ``AsyncServer.submit`` (phase 9's requests; a hit that restores after a
+     flood, a hit whose blocks the route-time prefetch brings back; the
+     route event's ``restore_s``, ``prefetches_triggered``, the
+     ``kv_restore_*``/``kv_prefetch_*`` series and spans, restored scores
+     equal to the warm hits'); (e) a short WL1 replay. Every replay
+     scrapes ``/metrics`` over HTTP while it runs (strict exposition
+     parser, the serving series present) and reads
+     ``/trace.chrome.json`` (every served request with queue, execute and
+     score spans), prints a ``serve`` line (requests, served, rejected by
+     reason, wall, scored requests/s, latency mean/p50/p99, token hit
+     rate, steps by kind, engine errors, retries, watchdog trips, peak
+     device memory, the card), holds the fault-free replays to no engine
+     error, retry, watchdog trip, capture failure or rejection and every
+     score within 2e-2 of a cold solo engine, and checks the launches per
+     forward;
+ 11. prints its total seconds and the ``kernels`` JSON line (every kernel
      and attention mode: qwen's row at the top level, each model's row and
      main-path launches under ``models``, ``launches`` their sum), then the
      result line ``{"ok": true, "device": {...}}`` last.
@@ -274,6 +301,35 @@ OFF_SAME = 1e-6
 OFF_SLOW_BW = 1e3
 OFF_PREFIX_CUTS = (1050, 1060)
 OFF_LONG = 16_384
+# phase 10, the serving plane: serve_trace's answer ids (the reference's);
+# (a) WL1 at full token scale (profiles 13-19k tokens, posts 150), 4 users x
+# 4 posts at 4 qps through two instances warmed on the trace's shape keys,
+# each with room for the warm-up's chains and the replay's (140,000 tokens,
+# 13.8 GB of KV at qwen) and its miss graphs at S 16,384 and 32,768 (which
+# keep every token's K/V: 1.6 and 3.2 GB); (b) WL1 at a twentieth of its
+# token scale (profiles ~0.5-0.9k, posts 7): no two misses of WL1 at a
+# tenth (1.1-1.7k each) fit the largest pack token budget autotune can set
+# (2048, the top suffix bucket, which profiling up to 2048 tokens sets), at
+# these two do; 8 users x 8 posts at 500 qps (64 requests in about 0.13 s,
+# faster than a step: at 64 qps the misses rarely queued together), so
+# misses and hits queue together; (c) (b)'s trace under seeded chaos: a
+# step crash on inst0's second step, NaN corruption of inst1's second
+# (the warm pool packs (b)'s trace into few steps), and more stragglers
+# and NaN corruption drawn from the seed; (e) WL1 at a tenth, 4 x 4
+SERVE_ANSWER = (5, 9)
+SERVE_A = dict(qps=4.0, scale_tokens=1.0, max_requests=16,
+               trace_kw=dict(num_users=4, posts_per_user=4))
+SERVE_A_CACHE = 140_000
+SERVE_A_GRAPHS = 10 << 30
+SERVE_B = dict(qps=500.0, scale_tokens=0.05, max_requests=64,
+               trace_kw=dict(num_users=8, posts_per_user=8))
+SERVE_B_CACHE = 16_384
+SERVE_CHAOS = dict(nan_score=0.05, straggler=0.05, straggler_seconds=0.01,
+                   schedule=(("inst0", 1, "step_error"),
+                             ("inst1", 1, "nan_score")), max_faults=8)
+SERVE_E = dict(qps=8.0, scale_tokens=0.1, max_requests=16,
+               trace_kw=dict(num_users=4, posts_per_user=4))
+SERVE_E_CACHE = 16_384
 
 
 class Spec(typing.NamedTuple):
@@ -473,11 +529,13 @@ def run_model(torch, dev, spec: Spec):
     gc.collect()                  # phase 8's engines go back to the card
     torch.cuda.empty_cache()
     offload = run_offload(torch, dev, cfg, params)
-    paths = (solo, packed, decode, long, offload)
+    serving = run_serving(torch, dev, spec, cfg, params)
+    paths = (solo, packed, decode, long, offload, serving)
     launches = {k: sum(p.get(k, 0) for p in paths)
                 for k in set().union(*paths)}
     print(f"{spec.arch}: main path launches (solo engine + packed engine + "
-          f"decode steps + long requests and replay + offload tier): "
+          f"decode steps + long requests and replay + offload tier + "
+          f"serving plane): "
           f"{launches}; phases took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return results, launches
@@ -2567,7 +2625,7 @@ def run_offload(torch, dev, cfg, params):
         run_recompute(torch, cfg, eng, cold, users, fresh, "(c)")
     torch.cuda.synchronize()
     launches = read_launches()               # the offload path ends here
-    expect, modes = tier_launch_expect(cfg, engines)
+    expect, modes = launches_since(cfg, mark((), made=engines))
     print(f"{cfg.name} offload (f) launches over "
           f"{sum(e.forwards for e in engines)} forwards of {len(engines)} "
           f"engines: {launches} (expected {expect}, segmented "
@@ -2582,26 +2640,6 @@ def run_offload(torch, dev, cfg, params):
     print(f"{cfg.name} phase 9 took {time.perf_counter() - t0:.1f} s",
           flush=True)
     return launches
-
-
-def tier_launch_expect(cfg, engines):
-    """Launches the engines' forwards must have made: ``per_forward`` at
-    each step's S (profile runs: one chunk), and the packed steps'
-    attention launches by mode."""
-    expect = {k: 0 for k in per_forward(cfg)}
-    modes = {"segmented": 0, "positioned": 0}
-    for eng in engines:
-        recs = list(eng.batch_records)
-        if len(recs) == eng.batch_records.maxlen:
-            fail("the step records overflowed their ring")
-        for S in [0] * (eng.forwards - len(recs)) + [r.S for r in recs]:
-            for k, v in per_forward(cfg, S).items():
-                expect[k] += v
-        for r in recs:
-            if r.n_requests > 1:
-                modes["positioned" if r.kind == "hit" else
-                      "segmented"] += cfg.num_layers
-    return expect, modes
 
 
 def report_link(torch, dev, cfg, eng) -> bool:
@@ -2728,8 +2766,8 @@ def tier_step(torch, eng, reqs, label: str, timer=None):
     return rec, res, d[0]
 
 
-def score_diff(a, b) -> float:
-    return max(abs(a["scores"][t] - b["scores"][t]) for t in (YES, NO))
+def score_diff(a, b, tokens=(YES, NO)) -> float:
+    return max(abs(a["scores"][t] - b["scores"][t]) for t in tokens)
 
 
 def cold_scores(torch, cold, reqs):
@@ -3123,6 +3161,569 @@ def report_trace(torch, prof, label: str, wall: float, expect=(),
     missing = [k for k in expect if not any(k in r for r in ran)]
     if missing:
         fail(f"trace {label}: {missing} did not run")
+
+
+
+# ---- phase 10: the serving plane ------------------------------------------------
+def run_serving(torch, dev, spec: Spec, cfg, params):
+    """Phase 10: the in-process serving plane on the card: ``make_pool``
+    instances over the model's weights behind the port's ``serve_trace`` or
+    ``AsyncServer`` (two instances on one card, one worker thread each).
+    qwen: (a) WL1 at full token scale, (b) WL1 packed through the server,
+    (c) (b)'s trace under seeded chaos; granite: (d) the offload tier's
+    serving side (restore and route-time prefetch), (e) a short WL1
+    replay. Every replay scrapes ``/metrics`` over HTTP while it runs and
+    reads ``/trace.chrome.json``, holds the served scores against a cold
+    solo engine's (or, under chaos, against (b)'s), and checks that its
+    forwards launched every kernel once per use. Returns the launches of
+    the phase."""
+    from repro_torch.core.engine import EngineConfig, PrefillOnlyEngine
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cold = PrefillOnlyEngine(cfg, params, EngineConfig(
+        max_pack_requests=1, cache_capacity_tokens=0,
+        graph_memory_bytes=REPLAY_GRAPH_BYTES), device=dev)
+    total = {}
+    with thread_errors() as errors:
+        if spec.extra_phases:
+            runs = (serve_full_scale, serve_packed_and_chaos)
+        else:
+            runs = (serve_offload, serve_short)
+        for run in runs:
+            for k, v in run(torch, dev, cfg, params, cold).items():
+                total[k] = total.get(k, 0) + v
+            gc.collect()
+            torch.cuda.empty_cache()
+    if errors:
+        fail(f"phase 10: a thread raised: {errors[0]}")
+    print(f"{cfg.name} phase 10 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return total
+
+
+@contextlib.contextmanager
+def thread_errors():
+    """Collect the exceptions that end any thread meanwhile (a future
+    resolved twice raises in the worker thread that resolves it)."""
+    import threading
+    errors, old = [], threading.excepthook
+
+    def hook(args):
+        errors.append(f"{args.thread.name}: {args.exc_type.__name__}: "
+                      f"{args.exc_value}")
+        old(args)
+
+    threading.excepthook = hook
+    try:
+        yield errors
+    finally:
+        threading.excepthook = old
+
+
+def mark(engines, made=()):
+    """Each engine's (forwards, step records) now, for ``launches_since``;
+    engines ``made`` in the window count from their construction (their
+    profile runs)."""
+    out = {eng: (eng.forwards, len(eng.batch_records)) for eng in engines}
+    out.update({eng: (0, 0) for eng in made})
+    return out
+
+
+def launches_since(cfg, marks):
+    """Launches the engines' forwards since ``marks`` must have made:
+    ``per_forward`` at each step's S (profile runs: one chunk), and the
+    packed steps' attention launches by mode."""
+    expect = {k: 0 for k in per_forward(cfg)}
+    modes = {"segmented": 0, "positioned": 0}
+    for eng, (f0, n0) in marks.items():
+        recs = list(eng.batch_records)
+        if len(recs) == eng.batch_records.maxlen:
+            fail("the step records overflowed their ring")
+        new = recs[n0:]
+        for S in [0] * (eng.forwards - f0 - len(new)) + [r.S for r in new]:
+            for k, v in per_forward(cfg, S).items():
+                expect[k] += v
+        for r in new:
+            if r.n_requests > 1:
+                modes["positioned" if r.kind == "hit" else
+                      "segmented"] += cfg.num_layers
+    return expect, modes
+
+
+def check_launches(torch, cfg, label: str, marks):
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expect, modes = launches_since(cfg, marks)
+    print(f"{cfg.name} serve {label} launches: {launches} (expected "
+          f"{expect}, segmented {modes['segmented']}, positioned "
+          f"{modes['positioned']})", flush=True)
+    if (kernel_launches(launches) != expect
+            or launches["flash_attention[segmented]"] != modes["segmented"]
+            or launches["flash_attention[positioned]"]
+            != modes["positioned"]):
+        fail(f"serve {label}: the forwards did not launch every kernel "
+             "once per use, in their forward's mode")
+    return launches
+
+
+class Scrape:
+    """A scraper of a replay's endpoint: it picks the port ``serve_trace``
+    is to serve on, polls ``/metrics`` there until ``after`` requests are
+    served, then fetches ``/metrics`` and ``/trace.chrome.json`` while the
+    replay's later arrivals run."""
+
+    def __init__(self, after: int):
+        import socket
+        import threading
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            self.port = s.getsockname()[1]
+        self.after, self.got = after, {}
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="scrape")
+        self.thread.start()
+
+    def _run(self):
+        from repro_torch.launch import smoke as v
+        address = ("127.0.0.1", self.port)
+        deadline = time.monotonic() + 600
+        try:
+            while time.monotonic() < deadline:
+                try:
+                    text = fetch(address, ("/metrics",))["/metrics"]
+                except OSError:            # not serving yet
+                    text = ""
+                if sum(x["value"] for x in v.parse_prometheus(text).get(
+                        "prefillonly_requests_served", [])) >= self.after:
+                    break
+                time.sleep(0.02)
+            self.got = fetch(address)
+        except Exception as e:
+            self.got = {"error": f"{type(e).__name__}: {e}"}
+
+    def wait(self):
+        self.thread.join(timeout=60)
+        if not self.got or "error" in self.got:
+            fail(f"the scrape during the replay failed: {self.got}")
+        return self.got
+
+
+def fetch(address, paths=("/metrics", "/trace.chrome.json")):
+    import urllib.request
+    base = f"http://{address[0]}:{address[1]}"
+    out = {}
+    for path in paths:
+        with urllib.request.urlopen(base + path, timeout=60) as r:
+            out[path] = r.read().decode()
+    return out
+
+
+SERVE_SERIES = ("requests_served", "latency_seconds_bucket",
+                "batch_wall_seconds_bucket", "step_padding_waste",
+                "queue_depth", "backlog_seconds", "jct_coef_a", "jct_coef_b",
+                "jct_pearson_r")
+
+
+def check_observability(label: str, got, server, served_ids) -> str:
+    """The scrape parses under the strict exposition parser and holds the
+    serving series; its chrome trace parses; every served request's
+    timeline has queue, execute and score spans. Returns a summary."""
+    from repro_torch.launch import smoke as v
+    series = v.parse_prometheus(got["/metrics"])
+    fams = v.validate_histograms(series)
+    missing = [n for n in SERVE_SERIES if f"prefillonly_{n}" not in series]
+    chrome = json.loads(got["/trace.chrome.json"])
+    nested = v.validate_chrome(chrome)
+    nested_all = v.validate_chrome(server.tracer.chrome_trace())
+    recs = {rid: r for r in server.tracer.snapshot() for rid in r["rids"]}
+    lacking = [rid for rid in served_ids if rid not in recs or not {
+        "queue", "execute", "score"} <= {s["name"] for s in
+                                        recs[rid]["spans"]}]
+    if missing or lacking:
+        fail(f"serve {label}: the scrape lacks {missing}, or requests "
+             f"{lacking[:5]} lack queue/execute/score spans")
+    split = {}
+    for rid in served_ids:          # each attempt adds its own spans
+        for s in recs[rid]["spans"]:
+            split.setdefault(s["name"], []).append(s["dur"] * 1e3)
+    return (f"scrape: {sum(len(x) for x in series.values())} samples of "
+            f"{len(series)} series ({len(fams)} histograms), chrome trace "
+            f"{len(chrome['traceEvents'])} events ({nested} nested spans; "
+            f"{nested_all} at the end); {len(served_ids)} served timelines "
+            f"with queue, execute and score spans; span ms mean (count): "
+            + ", ".join(f"{k} {statistics.mean(v):.3f} ({len(v)})"
+                        for k, v in sorted(split.items())))
+
+
+def serve_line(torch, cfg, label: str, server, outcomes, wall: float,
+               card: str, counted: bool = True) -> str:
+    """The ``serve`` line of one replay. ``counted``: the server's served
+    and rejected counters must equal the outcomes (each future resolved
+    once). Under injected faults the reference server's counters may count
+    a request whose served result was parked and then replaced by a
+    rejection twice, so a chaos replay relies on the futures and on no
+    thread raising instead."""
+    import numpy as np
+    from repro_torch.serving import Rejected
+    served = [o for o in outcomes if not isinstance(o, Rejected)]
+    reasons = {}
+    for o in outcomes:
+        if isinstance(o, Rejected):
+            reasons[o.reason] = reasons.get(o.reason, 0) + 1
+    m = server.metrics
+    if counted and (m.total("requests_served") != len(served) or m.total(
+            "requests_rejected") != len(outcomes) - len(served)):
+        fail(f"serve {label}: the server resolved {m.total('requests_served')}"
+             f" served and {m.total('requests_rejected')} rejected futures, "
+             f"the outcomes {len(served)} and {len(outcomes) - len(served)}")
+    lats = np.array([o["latency"] for o in served] or [np.nan])
+    hit = sum(o["n_cached"] for o in served) / max(
+        1, sum(o["n_input"] for o in served))
+    kinds = {k: m.total(f"pack_{k}_steps") for k in ("solo", "miss", "hit")}
+    return (f"{cfg.name} serve {label}: requests {len(outcomes)}, served "
+            f"{len(served)}, rejected {reasons}; wall {wall:.3f} s, "
+            f"{len(served) / wall:.3f} scored requests/s, latency mean "
+            f"{lats.mean() * 1e3:.3f} ms, p50 "
+            f"{np.percentile(lats, 50) * 1e3:.3f}, p99 "
+            f"{np.percentile(lats, 99) * 1e3:.3f}; token hit rate {hit:.4f}; "
+            f"steps by kind {kinds}, packed steps "
+            f"{kinds['miss'] + kinds['hit']}; engine_errors "
+            f"{m.total('engine_errors')}, retries "
+            f"{m.total('requests_retried')}, watchdog trips "
+            f"{m.total('watchdog_trips')}, quarantined "
+            f"{m.total('results_quarantined')}; peak device memory "
+            f"{torch.cuda.max_memory_allocated()} bytes; card {card}")
+
+
+def check_fault_free(cfg, label: str, server, pool, outcomes) -> None:
+    """No engine error, retry, watchdog trip, capture failure or rejection
+    of any reason in a replay without injected faults."""
+    from repro_torch.serving import Rejected
+    m = server.metrics
+    bad = {n: m.total(n) for n in ("engine_errors", "requests_retried",
+                                   "watchdog_trips", "results_quarantined")
+           if m.total(n)}
+    failed = [f.name for e in pool.engines.values() for f in e.graphs()
+              if f._failure is not None]
+    rejected = [o.reason for o in outcomes if isinstance(o, Rejected)]
+    if bad or failed or rejected or not all(pool.healthy.values()):
+        fail(f"serve {label}: {bad}, capture errors {failed}, rejected "
+             f"{rejected}, healthy {pool.healthy}")
+
+
+def cold_diff(cold, reqs, outcomes, memo) -> float:
+    """Max |score - a cold solo engine's| over the served requests (the
+    cold scores memoised by tokens)."""
+    worst = 0.0
+    for toks, o in zip(reqs, outcomes):
+        key = tuple(toks)
+        if key not in memo:
+            rid = cold.submit(toks, allowed_tokens=SERVE_ANSWER)
+            cold.step()
+            memo[key] = cold.results.pop(rid)["scores"]
+        worst = max(worst, max(abs(o["scores"][t] - memo[key][t])
+                               for t in SERVE_ANSWER))
+    return worst
+
+
+def replay(torch, cfg, label: str, pool, cold, card: str, marks, *,
+           fault_free: bool = True, memo=None, **kw):
+    """One ``serve_trace`` over ``pool`` with a scrape while it runs;
+    prints the ``serve`` line and checks the replay. Returns (outcomes,
+    the trace's token lists, launches)."""
+    from repro_torch.launch.serve import serve_trace
+    from repro_torch.serving import Rejected
+    torch.cuda.reset_peak_memory_stats()
+    # the replay's arrivals run on for seconds after its second result
+    scrape = Scrape(after=2)
+    out = serve_trace(cfg.name, pool=pool, metrics_port=scrape.port,
+                      drain_timeout=600.0, seed=SEED, **kw)
+    got = scrape.wait()
+    server, outcomes = out["server"], out["outcomes"]
+    reqs = trace_tokens(kw)
+    served = [o["req_id"] for o in outcomes if not isinstance(o, Rejected)]
+    obs = check_observability(label, got, server, served)
+    print(serve_line(torch, cfg, label, server, outcomes,
+                     out["wall_seconds"], card, counted=fault_free)
+          + f"; {obs}", flush=True)
+    if fault_free:
+        check_fault_free(cfg, label, server, pool, outcomes)
+    if memo is not None:
+        worst = cold_diff(cold, [t for t, o in zip(reqs, outcomes)
+                                 if not isinstance(o, Rejected)],
+                          [o for o in outcomes if not isinstance(o, Rejected)],
+                          memo)
+        print(f"{cfg.name} serve {label}: max |score - cold solo engine| "
+              f"{worst:.3e} over {len(served)} served (gate {SCORE_GATE})",
+              flush=True)
+        if worst >= SCORE_GATE:
+            fail(f"serve {label}: scores disagree with a cold engine")
+    launches = check_launches(torch, cfg, label, marks)
+    return outcomes, reqs, launches, out
+
+
+def trace_tokens(kw):
+    from repro_torch.data.workloads import get_trace
+    trace = get_trace("post_recommendation", kw["qps"],
+                      scale_tokens=kw["scale_tokens"], materialize_tokens=True,
+                      vocab=512, seed=SEED, **kw["trace_kw"])
+    return [r.tokens for r in trace.requests[:kw["max_requests"]]]
+
+
+def pool_sizes(cfg, pool, what: str) -> str:
+    from repro_torch.models.layers import torch_dtype
+    eng = next(iter(pool.engines.values()))
+    e = eng.ecfg
+    kv = cfg.kv_bytes_per_token(torch_dtype(cfg.dtype).itemsize)
+    return (f"{cfg.name} serve {what}: {len(pool.engines)} instances, each "
+            f"cache_capacity_tokens {e.cache_capacity_tokens} "
+            f"({e.cache_capacity_tokens * kv} bytes of KV), "
+            f"graph_memory_bytes {e.graph_memory_bytes}, pack budgets "
+            f"(token {e.pack_token_budget}, prefix {e.pack_prefix_budget}, "
+            f"requests {e.max_pack_requests}), offload {e.offload}"
+            + (f" (host_cache_bytes {e.host_cache_bytes}, link "
+               f"{eng.cache.policy.host_bw / 1e9:.3f} GB/s)"
+               if e.offload else ""))
+
+
+def serve_full_scale(torch, dev, cfg, params, cold):
+    """(a) WL1 at full token scale: SERVE_A's users and posts at
+    SERVE_A_QPS through two profiled instances warmed on the trace's shape
+    keys first, the least-backlog router, admission on."""
+    from repro_torch.launch.serve import make_pool
+    card = card_line()
+    reset_launches()
+    pool = make_pool(cfg.name, 2, reduced=False, profile=True, device=dev,
+                     params=params, cache_tokens=SERVE_A_CACHE,
+                     ecfg=dict(graph_memory_bytes=SERVE_A_GRAPHS))
+    print(pool_sizes(cfg, pool, "(a)"), flush=True)
+    marks = mark([cold], made=pool.engines.values())
+    _, _, launches, out = replay(
+        torch, cfg, "(a) WL1 full scale", pool, cold, card, marks,
+        memo={}, warm=True, **SERVE_A)
+    return launches
+
+
+def serve_packed_and_chaos(torch, dev, cfg, params, cold):
+    """(b) WL1 at SERVE_B's scale with arrivals close enough that misses
+    and hits queue together: packed-miss and packed-hit steps through the
+    server (profiled on LONG_LENGTHS, so that autotune sets the pack token
+    budget to the top suffix bucket). (c) The same trace on the same pool
+    under a seeded ChaosConfig of step crashes, stragglers and NaN
+    corruption, retry on: every future resolves exactly once, the injected
+    faults counted, every served score within SCORE_GATE of (b)'s."""
+    from repro_torch.launch.serve import make_pool
+    from repro_torch.serving import ChaosConfig, Rejected
+    card = card_line()
+    reset_launches()
+    pool = make_pool(cfg.name, 2, reduced=False, profile=True, device=dev,
+                     params=params, cache_tokens=SERVE_B_CACHE,
+                     profile_lengths=LONG_LENGTHS)
+    print(pool_sizes(cfg, pool, "(b)") + " (autotuned by profile())",
+          flush=True)
+    marks = mark([cold], made=pool.engines.values())
+    outs, reqs, launches, _ = replay(
+        torch, cfg, "(b) WL1 packed", pool, cold, card, marks, memo={},
+        **SERVE_B)
+    kinds = {k: sum(r.n_requests > 1 and r.kind == k
+                    for e in pool.engines.values() for r in e.batch_records)
+             for k in ("miss", "hit")}
+    print(f"{cfg.name} serve (b) packed steps through the server: "
+          f"packed-miss {kinds['miss']}, packed-hit {kinds['hit']}",
+          flush=True)
+    if not (kinds["miss"] and kinds["hit"]):
+        fail("serve (b): no packed-miss or no packed-hit step ran")
+    total = dict(launches)
+    reset_launches()
+    marks = mark(pool.engines.values())
+    chaos = ChaosConfig(seed=SEED, **SERVE_CHAOS)
+    couts, _, launches, out = replay(
+        torch, cfg, "(c) WL1 packed under chaos", pool, cold, card, marks,
+        fault_free=False, chaos=chaos, **SERVE_B)
+    worst = max([max(abs(c["scores"][t] - b["scores"][t])
+                     for t in SERVE_ANSWER)
+                 for c, b in zip(couts, outs)
+                 if not isinstance(c, Rejected)] or [0.0])
+    faults = out.get("faults_injected", {})
+    print(f"{cfg.name} serve (c): faults injected {faults}; every future "
+          f"resolved once ({len(couts)} of {len(reqs)}); max |score - (b)| "
+          f"{worst:.3e} over the served (gate {SCORE_GATE})", flush=True)
+    if (len(couts) != len(reqs) or not faults.get("step_error")
+            or not faults.get("nan_score") or worst >= SCORE_GATE):
+        fail("serve (c): a future was lost, the step crash or the NaN "
+             "corruption did not fire, or a served score moved")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+
+def serve_offload(torch, dev, cfg, params, cold):
+    """(d) The offload tier's serving side: two profiled instances with
+    ``offload=True`` sized as phase 9's (a device cache of two users'
+    1124-token requests, 70 blocks each), the user-hash router (each
+    user's requests and floods on one instance), admission on. Each user:
+    a miss, two hits (the second is the warm reference); a hit that waits
+    behind a flood demoting its blocks, so its step restores them
+    (``restore``); a flood; then a hit submitted while the instance runs
+    another miss, so the route-time prefetch restores the blocks first
+    (``prefetch``). Restored scores must equal the warm hits' (|Δ| <=
+    OFF_SAME), admission's route event must price the restore, and the
+    prefetch and restore series and spans must be there."""
+    import numpy as np
+    from repro_torch.core.kv_policy import MemoryModel
+    from repro_torch.core.prefix_cache import token_chain
+    from repro_torch.launch.serve import (instance_chip, make_pool,
+                                          start_metrics_server)
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.runtime.fault_tolerance import rendezvous_hash
+    from repro_torch.serving import (AdmissionController, AsyncServer,
+                                     Rejected, SpanTracer, get_router)
+    card = card_line()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(SEED + 23)
+
+    def fresh(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    cap = 2 * (OFF_PROFILE + OFF_POST) // 16 * 16
+    kv = cfg.kv_bytes_per_token(torch_dtype(cfg.dtype).itemsize)
+    pool = make_pool(cfg.name, 2, reduced=False, profile=True, offload=True,
+                     device=dev, params=params, cache_tokens=cap,
+                     ecfg=dict(host_cache_bytes=4 * cap * kv,
+                               max_pack_requests=1))
+    print(pool_sizes(cfg, pool, "(d)"), flush=True)
+    engines = pool.engines
+    for name, eng in engines.items():
+        if not eng.cache.policy.worth_restoring(cfg, 16, eng.block_bytes()):
+            fail(f"serve (d): {name}'s policy recomputes at its measured "
+                 "link, so the tier has no restore to serve")
+    marks = mark([cold], made=engines.values())
+    tracer = SpanTracer()
+    server = AsyncServer(
+        pool, router=get_router("user_hash"),
+        admission=AdmissionController(memory_model=MemoryModel(
+            cfg, instance_chip(pool))),
+        tracer=tracer).start()
+    exporter = start_metrics_server(server.metrics, 0, tracer=tracer)
+    address = exporter.server_address[:2]
+    users = {"userA": fresh(OFF_PROFILE) + fresh(OFF_POST),
+             "userB": fresh(OFF_PROFILE) + fresh(OFF_POST)}
+    log = []            # (label, user, tokens, result)
+
+    def ask(user, toks, label):
+        res = server.submit(user, toks, allowed_tokens=SERVE_ANSWER).result(
+            timeout=600)
+        log.append((label, user, toks, res))
+        return res
+
+    def ask_behind(user, toks, busy, label):
+        """Submit ``busy``, wait until it runs on the user's instance, then
+        submit ``toks``."""
+        eng = engines[rendezvous_hash(user, sorted(engines))]
+        first = server.submit(user, busy, allowed_tokens=SERVE_ANSWER)
+        deadline = time.monotonic() + 600
+        while not eng._inflight and time.monotonic() < deadline:
+            time.sleep(0.0005)
+        fut = server.submit(user, toks, allowed_tokens=SERVE_ANSWER)
+        log.append((label + " (ahead)", user, busy, first.result(timeout=600)))
+        res = fut.result(timeout=600)
+        log.append((label, user, toks, res))
+        return res
+
+    t0 = time.perf_counter()
+    try:
+        for u, toks in users.items():
+            ask(u, toks, "miss")
+        warm = {}
+        for u, toks in users.items():
+            ask(u, toks, "hit")
+            warm[u] = ask(u, toks, "warm hit")
+        got, restored, prefetched = None, {}, {}
+        for u, toks in users.items():
+            # on the card at routing (an earlier user's flood on a shared
+            # instance may have demoted it), so no prefetch starts, then
+            # demoted by the flood ahead of it: its step restores
+            ask(u, toks, "hit")
+            restored[u] = ask_behind(u, toks, fresh(cap), "restored hit")
+            if got is None:
+                got = fetch(address)          # the scrape, while (d) runs
+            ask(u, fresh(cap), "flood")
+            eng = engines[rendezvous_hash(u, sorted(engines))]
+            chain = token_chain(toks, 16)
+            if eng.cache.match_tiers(chain) != ["host"] * len(chain):
+                fail(f"serve (d): the flood left {u}'s blocks "
+                     f"{eng.cache.match_tiers(chain)}")
+            prefetched[u] = ask_behind(u, toks, fresh(len(toks)),
+                                       "prefetched hit")
+        join_prefetch()
+        wall = time.perf_counter() - t0
+        got["/trace.chrome.json"] = fetch(address)["/trace.chrome.json"]
+    finally:
+        server.shutdown(drain=True, timeout=60)
+        exporter.shutdown()
+        exporter.server_close()
+    outcomes = [res for _, _, _, res in log]
+    served = [o["req_id"] for o in outcomes if not isinstance(o, Rejected)]
+    obs = check_observability("(d)", got, server, served)
+    print(serve_line(torch, cfg, "(d) offload tier", server, outcomes, wall,
+                     card) + f"; {obs}", flush=True)
+    check_fault_free(cfg, "(d)", server, pool, outcomes)
+    recs = {rid: r for r in tracer.snapshot() for rid in r["rids"]}
+
+    def timeline(res):
+        rec = recs[res["req_id"]]
+        route = next(e for e in rec["events"] if e["name"] == "route")
+        return route["restore_s"], {s["name"] for s in rec["spans"]}
+
+    m = server.metrics
+    series = {k: (m.total(f"kv_{k}_blocks"), m.total(f"kv_{k}_bytes"),
+                  m.merged_histogram(f"kv_{k}_seconds").count)
+              for k in ("restore", "prefetch")}
+    same = max(score_diff(r, warm[u], SERVE_ANSWER)
+               for part in (restored, prefetched) for u, r in part.items())
+    lines = []
+    for u in users:
+        rs, rspans = timeline(restored[u])
+        ps, pspans = timeline(prefetched[u])
+        lines.append(f"{u}: restored hit n_cached "
+                     f"{restored[u]['n_cached']} route restore_s {rs:.3e} "
+                     f"spans {sorted(rspans)}; prefetched hit route "
+                     f"restore_s {ps:.3e} spans {sorted(pspans)}")
+        if ("restore" not in rspans or ps <= 0 or "prefetch" not in pspans
+                or not restored[u]["n_cached"]):
+            fail(f"serve (d): {lines[-1]}")
+    print(f"{cfg.name} serve (d): " + "; ".join(lines) + f"; "
+          f"prefetches_triggered {m.total('prefetches_triggered')}; "
+          f"kv_(blocks, bytes, episodes) {series}; |restored score - warm "
+          f"hit| {same:.3e} (limit {OFF_SAME})", flush=True)
+    if (m.total("prefetches_triggered") < 1 or same > OFF_SAME
+            or not all(all(v) for v in series.values())):
+        fail("serve (d): no route-time prefetch, a restore or prefetch "
+             "series is empty, or a restored score moved")
+    worst = cold_diff(cold, [toks for _, _, toks, _ in log], outcomes, {})
+    print(f"{cfg.name} serve (d): max |score - cold solo engine| "
+          f"{worst:.3e} over {len(outcomes)} served (gate {SCORE_GATE})",
+          flush=True)
+    if worst >= SCORE_GATE:
+        fail("serve (d): scores disagree with a cold engine")
+    return check_launches(torch, cfg, "(d)", marks)
+
+
+def serve_short(torch, dev, cfg, params, cold):
+    """(e) A short WL1 replay (SERVE_E) through two profiled instances."""
+    from repro_torch.launch.serve import make_pool
+    card = card_line()
+    reset_launches()
+    pool = make_pool(cfg.name, 2, reduced=False, profile=True, device=dev,
+                     params=params, cache_tokens=SERVE_E_CACHE)
+    print(pool_sizes(cfg, pool, "(e)"), flush=True)
+    marks = mark([cold], made=pool.engines.values())
+    _, _, launches, _ = replay(torch, cfg, "(e) WL1 short", pool, cold, card,
+                               marks, memo={}, **SERVE_E)
+    return launches
 
 
 if __name__ == "__main__":

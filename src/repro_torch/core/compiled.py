@@ -45,9 +45,14 @@ Rules a caller keeps:
   over its forwards and drops the least recently used past it.
 - **Other threads.** A capture in CUDA's global error mode fails when any
   thread of the process synchronises or allocates meanwhile, and the
-  warm-up's sync debug mode is the process's. A first use holds
-  ``capture_lock`` over both; a thread that issues device work beside the
-  caller's (the offload tier's prefetch) holds it over that work.
+  warm-up's sync debug mode is the process's. ``device_lock``
+  (re-entrant) is held over every engine's step, ``profile()`` and
+  construction, and over every first use, so several engines take turns
+  on one card: no step runs beside another's capture, and a peer's
+  kernels stay out of a step's wall, which the serving watchdog times. A
+  first use also holds ``capture_lock`` over both, and so does a thread
+  that issues device work beside the steps (the offload tier's prefetch,
+  which may overlap a step but never a capture).
 """
 from __future__ import annotations
 
@@ -68,8 +73,10 @@ from repro_torch.kernels import rmsnorm as _rms
 
 Spec = Tuple[Tuple[int, ...], torch.dtype]     # (shape, dtype) of one input
 _COUNTED = {"rmsnorm": _rms, "fused_mlp": _mlp, "decode_attention": _da}
-# held over every warm-up and capture, and by any thread's device work
-# beside them (see the module docstring)
+# held over every step, profile run, engine construction and first use of
+# the process; capture_lock over every warm-up and capture, and by any
+# thread's device work beside the steps (see the module docstring)
+device_lock = threading.RLock()
 capture_lock = threading.Lock()
 
 
@@ -88,7 +95,8 @@ def read_launches() -> Dict[str, int]:
 
 
 def add_launches(delta: Mapping[str, int]) -> None:
-    """Add ``delta`` (``read_launches``'s keys) to the wrappers' counts."""
+    """Add ``delta`` (``read_launches``'s keys) to the wrappers' counts
+    (an engine's replays add theirs under ``device_lock``)."""
     for name, n in delta.items():
         if name in _COUNTED:
             _COUNTED[name].launches += n
@@ -217,23 +225,25 @@ class CompiledForward:
 
     def _first_use(self) -> None:
         """Warm up, capture, keep the capture's launch counts; the counters
-        end where they started. Raises ``CaptureError``."""
-        before = read_launches()
+        end where they started (read and put back under ``device_lock``,
+        while no other thread replays). Raises ``CaptureError``."""
         try:
-            with capture_lock:
-                t0 = time.perf_counter()
-                self._warm_up()
-                warm = read_launches()
-                graph, outputs = self._capture()
-            captured = _diff(read_launches(), warm)
+            with device_lock, capture_lock:
+                before = read_launches()
+                try:
+                    t0 = time.perf_counter()
+                    self._warm_up()
+                    warm = read_launches()
+                    graph, outputs = self._capture()
+                    captured = _diff(read_launches(), warm)
+                finally:
+                    add_launches(_diff(before, read_launches()))
         except Exception as e:
             # a failed capture leaves the pool unusable: every later call
             # raises the same error
             self._failure = CaptureError(
                 f"capture of {self.name} failed: {e}")
             raise self._failure from e
-        finally:
-            add_launches(_diff(before, read_launches()))
         self.graph, self.outputs, self.launches = graph, outputs, captured
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 

@@ -50,6 +50,21 @@ engine pins its host tier's memory when it is made
 (``_reserve_host_memory``), so that no step pays for growing it. The
 engine's steps run on the device's default stream (the current stream of a
 thread that set none).
+
+Serving (``repro_torch.serving``): ``AsyncServer`` drives one engine per
+worker thread through ``step()`` and probes it from other threads
+(``pending_jct``, ``predict_jct``, ``cached_prefix_len``, ``probe``,
+``inflight_snapshot``, ``restore_estimate``, ``prefetch_prefix``);
+``bind_telemetry`` attaches the server's ``MetricsRegistry`` and
+``SpanTracer``, which each step, restore and prefetch then feeds as the
+reference's engine does. Several engines may share one card in one
+process: every step, ``profile()``, construction and first use (warm-up
+and capture) holds ``compiled.device_lock``, so the engines take turns on
+the card and none runs beside another's capture. A step takes the lock
+before it forms its batch: while it waits for another engine's step its
+requests are still queued, nothing is in flight, and the watchdog
+(``inflight_snapshot``) sees no batch to time, as it sees none during the
+engine's own first use.
 """
 from __future__ import annotations
 
@@ -143,7 +158,9 @@ class PrefillOnlyEngine:
                 f"family {cfg.family!r}: the port's engine runs dense models")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = cast_params(params, torch_dtype(cfg.dtype), self.device)
+        with _compiled.device_lock:
+            self.params = cast_params(params, torch_dtype(cfg.dtype),
+                                      self.device)
         self.ecfg = ecfg = EngineConfig() if ecfg is None else ecfg
         # Guards queue / cache / results / jct_model: a worker thread drives
         # step() while other threads submit, cancel, shed and probe; the
@@ -199,7 +216,8 @@ class PrefillOnlyEngine:
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if cuda and ecfg.offload else None)
         if cuda and ecfg.offload:
-            self._reserve_host_memory()
+            with _compiled.device_lock:
+                self._reserve_host_memory()
         # the prefix buffer (k and v, flat) of every new hit forward: each
         # reads a view of its front, written just before its call
         self._prefix_store: Optional[Dict[str, torch.Tensor]] = None
@@ -238,6 +256,10 @@ class PrefillOnlyEngine:
             shape_model=self.shape_jct)
         self._last_path: Tuple[str, Tuple] = ("", ())
         self._last_shape: Dict[str, int] = {}
+        # serving telemetry (bind_telemetry): None until a server binds one
+        self.metrics = None
+        self.instance_name = ""
+        self.tracer = None
 
     def _sync(self) -> None:
         """Wait for the device: timestamps must see compute, not launches."""
@@ -247,6 +269,10 @@ class PrefillOnlyEngine:
     # ---- profile run (paper §3.1) ------------------------------------------
     def profile(self, lengths: Sequence[int] = (64, 128, 256, 512)) -> float:
         """Measure jct(n_input, 0) on this device, fit the linear proxy."""
+        with _compiled.device_lock:
+            return self._profile(lengths)
+
+    def _profile(self, lengths: Sequence[int]) -> float:
         samples: List[Sample] = []
         rng = np.random.default_rng(0)
         for n in lengths:
@@ -418,6 +444,10 @@ class PrefillOnlyEngine:
                 n_input, self._usable_prefix_len(
                     n_input, self.cache.probe_blocks(chain)))
 
+    def cached_prefix_len(self, chain: Tuple[int, ...]) -> int:
+        with self.lock:
+            return self.cache.probe_len(chain)
+
     def probe(self, n_input: int,
               chain: Tuple[int, ...] = ()) -> Tuple[float, float, int]:
         """``(pending_jct, predict_jct, cached_prefix_len)`` in ONE lock
@@ -425,6 +455,33 @@ class PrefillOnlyEngine:
         with self.lock:
             return (self.pending_jct(), self.predict_jct(n_input, chain),
                     self.cache.probe_len(chain))
+
+    @property
+    def last_step_ids(self) -> List[int]:
+        return list(self._last_step_ids)
+
+    def inflight_snapshot(self) -> Tuple[List[int], float, float]:
+        """(in-flight request ids, predicted batch JCT, start timestamp) —
+        the serving watchdog's hang probe. A step on a shape key's first
+        use (warm-up and capture) reports EMPTY, as the reference's does for
+        a jit compile: its time is outside the JCT model. A step waiting
+        for another engine's step has formed no batch yet (``step``
+        takes ``compiled.device_lock`` first), so it reports empty too."""
+        with self.lock:
+            if self._step_compiled:
+                return [], 0.0, 0.0
+            return (list(self._inflight), self._inflight_pred,
+                    self._inflight_t0)
+
+    def bind_telemetry(self, metrics=None, instance: str = "",
+                       tracer=None) -> None:
+        """Attach the serving registry and/or a SpanTracer. The JCT monitor
+        exports coefficient gauges immediately so a scrape before the first
+        warm step still sees the profile() fit."""
+        self.metrics = metrics
+        self.instance_name = instance
+        self.tracer = tracer
+        self.jct_monitor.bind(metrics, instance)
 
     def set_degraded(self, flag: bool) -> None:
         """Brownout level >=2 hook: disable hit co-packing's batched
@@ -434,21 +491,48 @@ class PrefillOnlyEngine:
             self.degraded = bool(flag)
 
     # ---- DRAM offload tier (paper §9) ---------------------------------------
-    def _match_restoring(self, chain: Tuple[int, ...]) -> int:
+    def _match_restoring(self, chain: Tuple[int, ...],
+                         rid: Optional[int] = None) -> int:
         """``match_blocks(touch=True)`` of the execution path. On the tiered
         cache the match may restore blocks from the host store; every
         matched block whose payload is still on the host (restored here or
         by a prefetch not yet through) is then copied to the device on the
-        current stream, so the forward reads device tensors only. Call
-        under the engine lock."""
+        current stream, so the forward reads device tensors only. A restore
+        is timed and counted and emits the ``restore`` span and series
+        (``_note_tier``). Call under the engine lock."""
         c = self.cache
         if not isinstance(c, TieredPrefixCache):
             return c.match_blocks(chain, touch=True)
-        matched = c.match_blocks(chain, now=time.perf_counter(), touch=True)
+        r0, b0 = c.restored_blocks, c.host.restore_bytes
+        t0 = time.perf_counter()
+        matched = c.match_blocks(chain, now=t0, touch=True)
         for h in chain[:matched]:
             blk = c.blocks[h]
             blk.payload = to_device(blk.payload, self.device)
+        blocks = c.restored_blocks - r0
+        if blocks:
+            self._note_tier("restore", rid, blocks,
+                            c.host.restore_bytes - b0, t0,
+                            time.perf_counter())
         return matched
+
+    def _note_tier(self, kind: str, rid: Optional[int], blocks: int,
+                   nbytes: int, t0: float, t1: float) -> None:
+        """Export one restore/prefetch episode as Prometheus series and (when
+        a request id is known) a SpanTracer phase."""
+        m, inst = self.metrics, self.instance_name
+        if m is not None:
+            m.counter(f"kv_{kind}_blocks", inst,
+                      help=f"KV blocks moved host->device by {kind}").inc(
+                blocks)
+            m.counter(f"kv_{kind}_bytes", inst).inc(nbytes)
+            m.histogram(f"kv_{kind}_seconds", inst,
+                        help=f"wall seconds per {kind} episode").observe(
+                t1 - t0)
+        tr = self.tracer
+        if tr is not None and rid is not None:
+            tr.span_rid(rid, kind, t0, t1, instance=inst,
+                        blocks=blocks, bytes=int(nbytes))
 
     def restore_estimate(self, chain: Tuple[int, ...]) -> Dict[str, float]:
         """Restorable host-tier continuation of ``chain`` and its priced
@@ -462,13 +546,16 @@ class PrefillOnlyEngine:
         with self.lock:
             return c.restore_estimate(chain)
 
-    def prefetch_prefix(self, chain: Tuple[int, ...]) -> int:
+    def prefetch_prefix(self, chain: Tuple[int, ...],
+                        rid: Optional[int] = None) -> int:
         """Asynchronous restore of ``chain``'s restorable continuation,
         started at routing time (the router knows the usable prefix before
         the forward runs). Returns the blocks scheduled (0: nothing
         restorable, or no tier). A ``kv-prefetch`` daemon thread restores
         them into the device tier under the lock, then copies their
-        payloads to the device outside it (``_prefetch_worker``)."""
+        payloads to the device outside it (``_prefetch_worker``); the
+        episode emits the ``prefetch`` span (on ``rid``'s timeline) and
+        series."""
         c = self.cache
         if not isinstance(c, TieredPrefixCache):
             return 0
@@ -476,44 +563,56 @@ class PrefillOnlyEngine:
             est = c.restore_estimate(chain)
         if not est["blocks"]:
             return 0
-        threading.Thread(target=self._prefetch_worker, args=(tuple(chain),),
+        threading.Thread(target=self._prefetch_worker,
+                         args=(tuple(chain), rid),
                          daemon=True, name="kv-prefetch").start()
         return int(est["blocks"])
 
-    def _prefetch_worker(self, chain: Tuple[int, ...]) -> None:
+    def _prefetch_worker(self, chain: Tuple[int, ...],
+                         rid: Optional[int]) -> None:
         """Restore ``chain`` under the lock, copy the restored payloads to
         the device on the copy stream outside it, wait for the copies, then
         swap each in under the lock where the block still holds the host
         payload copied (an execute-path match may have copied it first).
         The whole of it holds ``capture_lock``: the restore may demote
         (pinned allocations, device-to-host copies), and neither it nor the
-        copies may run beside a capture."""
+        copies may run beside a capture. It may run beside a step."""
         c = self.cache
         with _compiled.capture_lock:
+            t0 = time.perf_counter()
             with self.lock:
-                r0 = c.restored_blocks
-                matched = c.match_blocks(chain, now=time.perf_counter(),
-                                         touch=True)
+                r0, b0 = c.restored_blocks, c.host.restore_bytes
+                matched = c.match_blocks(chain, now=t0, touch=True)
                 blocks = c.restored_blocks - r0
+                nbytes = c.host.restore_bytes - b0
                 hs = chain[matched - blocks:matched] if blocks else ()
                 host = [(h, c.blocks[h].payload) for h in hs
                         if isinstance(c.blocks[h].payload, HostKV)]
-            if not host:
+            if not blocks:
                 return
-            dev = [(h, p, to_device(p, self.device, self._copy_stream))
-                   for h, p in host]
-            done = torch.cuda.Event()
-            done.record(self._copy_stream)
-            done.synchronize()
-            with self.lock:
-                for h, p, payload in dev:
-                    blk = c.blocks.get(h)
-                    if blk is not None and blk.payload is p:
-                        blk.payload = payload
+            if host:
+                dev = [(h, p, to_device(p, self.device, self._copy_stream))
+                       for h, p in host]
+                done = torch.cuda.Event()
+                done.record(self._copy_stream)
+                done.synchronize()
+                with self.lock:
+                    for h, p, payload in dev:
+                        blk = c.blocks.get(h)
+                        if blk is not None and blk.payload is p:
+                            blk.payload = payload
+            self._note_tier("prefetch", rid, blocks, nbytes, t0,
+                            time.perf_counter())
 
     def step(self) -> Optional[int]:
         """One scheduling step: pick (Algorithm 1), form a batch, prefill,
-        cache, score. Returns the anchor request's id."""
+        cache, score. Returns the anchor request's id. The step holds
+        ``compiled.device_lock`` from before it forms its batch to its
+        end."""
+        with _compiled.device_lock:
+            return self._step()
+
+    def _step(self) -> Optional[int]:
         now = time.perf_counter()
         batch = self._form_batch(now)
         if batch is None:
@@ -563,16 +662,17 @@ class PrefillOnlyEngine:
                 1 for r in batch if r.n_cached_at_start > 0)
         self.steps += 1
         self._last_step_ids = [r.req_id for r in batch]
-        self._record_step(batch, now, done, padded0)
+        self._record_step(batch, now, done, time.perf_counter(), padded0)
         with self.lock:
             self._inflight = []
             self._inflight_pred = 0.0
         return batch[0].req_id
 
     def _record_step(self, batch: List[Request], t0: float, t_done: float,
-                     padded0: int) -> None:
+                     t_scored: float, padded0: int) -> None:
         """Observability epilogue of step(): BatchRecord into the ring, JCT
-        calibration sample (warm steps only)."""
+        calibration sample (warm steps only), the bound registry's series and
+        the tracer's per-request spans."""
         pred = self._inflight_pred
         computed = sum(r.n_input - r.n_cached_at_start for r in batch)
         kind = ("solo" if len(batch) == 1
@@ -581,7 +681,8 @@ class PrefillOnlyEngine:
         path, key = self._last_path
         shape = self._last_shape
         rec = BatchRecord(
-            step=self.steps, ts=t_done, kind=kind, n_requests=len(batch),
+            step=self.steps, ts=t_done, instance=self.instance_name,
+            kind=kind, n_requests=len(batch),
             req_ids=tuple(r.req_id for r in batch),
             computed_tokens=computed,
             padded_tokens=self.padded_slots - padded0,
@@ -596,6 +697,48 @@ class PrefillOnlyEngine:
             self.jct_monitor.observe(pred, t_done - t0, computed, kind=kind)
             self.shape_jct.observe(computed, rec.S, rec.Nb, rec.smax,
                                    rec.pmax, rec.wall)
+        m = self.metrics
+        if m is not None:
+            m.gauge("step_padding_waste", self.instance_name).set(
+                rec.padding_waste)
+            m.histogram("padding_waste", self.instance_name).observe(
+                rec.padding_waste)
+            m.counter("padded_slots", self.instance_name).inc(
+                rec.padded_tokens)
+            m.counter(f"pack_{kind}_steps", self.instance_name).inc()
+            m.histogram("batch_wall_seconds", self.instance_name).observe(
+                rec.wall)
+            if isinstance(self.cache, TieredPrefixCache):
+                hs = self.cache.host.stats()
+                m.gauge("host_kv_used_bytes", self.instance_name,
+                        help="DRAM offload tier occupancy").set(
+                    hs["used_bytes"])
+                m.gauge("host_kv_blocks", self.instance_name).set(
+                    hs["blocks"])
+                m.gauge("kv_offload_blocks", self.instance_name,
+                        help="KV blocks demoted device->host (cumulative)"
+                        ).set(hs["offloads"])
+                m.gauge("kv_offload_bytes", self.instance_name).set(
+                    hs["offload_bytes"])
+        tr = self.tracer
+        if tr is None:
+            return
+        tr.record_batch(rec)
+        inst = self.instance_name
+        peers = [r.req_id for r in batch]
+        for r in batch:
+            tr.span_rid(r.req_id, "queue", r.arrival, t0, instance=inst)
+            tr.span_rid(r.req_id, "execute", t0, t_done, instance=inst,
+                        pack=kind, compiled=self._step_compiled,
+                        jit_path=path)
+            tr.span_rid(r.req_id, "score", t_done, t_scored, instance=inst)
+            tr.event_rid(r.req_id, "batch", kind=kind, step=self.steps,
+                         peers=[p for p in peers if p != r.req_id],
+                         predicted_jct=pred, computed_tokens=computed,
+                         n_cached=r.n_cached_at_start)
+            if self._step_compiled:
+                tr.event_rid(r.req_id, "jit_compile", path=path,
+                             key=list(key))
 
     # ---- batch formation -------------------------------------------------------
     def _usable_prefix_len(self, n_input: int, matched_blocks: int) -> int:
@@ -754,7 +897,7 @@ class PrefillOnlyEngine:
         # cache probe + pin under the lock; the forward itself runs outside
         # it so router/admission probes never block on compute
         with self.lock:
-            matched = self._match_restoring(r.chain)
+            matched = self._match_restoring(r.chain, rid=r.req_id)
             prefix_len = self._usable_prefix_len(r.n_input, matched)
             use_blocks = prefix_len // bs
             r.n_cached_at_start = prefix_len
@@ -813,7 +956,7 @@ class PrefillOnlyEngine:
         prefs: List[Tuple[int, List, int]] = []
         with self.lock:
             for r in batch:
-                matched = self._match_restoring(r.chain)
+                matched = self._match_restoring(r.chain, rid=r.req_id)
                 plen = self._usable_prefix_len(r.n_input, matched)
                 r.n_cached_at_start = plen
                 payloads = []

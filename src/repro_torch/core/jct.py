@@ -17,6 +17,10 @@ import dataclasses
 from typing import List, Sequence, Tuple
 
 import numpy as np
+# imported with the module, not inside a fit: a first import of
+# scipy.optimize takes about a second, which an engine step's refit (timed
+# by the serving watchdog) must not pay
+from scipy.optimize import least_squares, nnls
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.runtime.hw import ChipSpec
@@ -168,9 +172,8 @@ class PackedShapeJCT:
         X = np.array([s[0] for s in samples], np.float64)
         t = np.array([s[1] for s in samples], np.float64)
         try:
-            from scipy.optimize import nnls
             coef, _ = nnls(X, t)
-        except Exception:  # pragma: no cover - scipy always present in image
+        except Exception:  # pragma: no cover - NNLS did not converge
             coef, *_ = np.linalg.lstsq(X, t, rcond=None)
             coef = np.clip(coef, 0.0, None)
         self.coef = np.asarray(coef, np.float64)
@@ -325,8 +328,6 @@ def fit_roofline(model: RooflineJCT,
     span orders of magnitude of wall time, and each should count alike),
     started from the weighted linear fit of seconds on FLOPs, with the
     efficiency held in (0, 1] and the overhead at or above 0."""
-    from scipy.optimize import least_squares
-
     rows = [(int(n), int(c)) for n, c, _ in samples]
     t = np.array([s[2] for s in samples], np.float64)
     flops = np.array([model.flops(n, c) for n, c in rows])

@@ -934,3 +934,96 @@ def test_a_prefetch_during_a_capture_waits_for_it(dev, monkeypatch):
         want, = _tier_serve(cold, [t])
         for tok in (5, 9):
             assert abs(res["scores"][tok] - want["scores"][tok]) < 2e-2
+
+
+def _solo_scores(cfg, params, dev, reqs):
+    """Each of ``reqs`` served alone on a fresh engine of its own."""
+    out = []
+    for toks in reqs:
+        eng = PrefillOnlyEngine(cfg, params, EngineConfig(
+            max_pack_requests=1, cache_capacity_tokens=0), device=dev)
+        rid = eng.submit(toks, allowed_tokens=(5, 9))
+        eng.step()
+        out.append(eng.results[rid]["scores"])
+    return out
+
+
+def test_two_engines_step_side_by_side_while_one_captures(dev):
+    """Two full-width qwen1.5-0.5b engines step in two threads: one replays
+    keys it captured before, the other captures new keys meanwhile.
+    ``compiled.device_lock`` keeps every step's device work out of the
+    other's warm-up and capture: no ``CaptureError``, no sync
+    debug error, and every score equals the same request's served on an
+    engine of its own (the same kernels on the same inputs)."""
+    cfg = get_config("qwen1.5-0.5b")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    rng = np.random.default_rng(3)
+    warm = [rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in (100, 200, 400)]
+    new = [rng.integers(0, cfg.vocab_size, n).tolist()
+           for n in (60, 700, 1500, 120, 450, 250)]   # six new keys
+    engines = [PrefillOnlyEngine(cfg, params, EngineConfig(
+        max_pack_requests=1, cache_capacity_tokens=0), device=dev)
+        for _ in range(2)]
+    for toks in warm:                      # engine 0's keys, captured now
+        engines[0].submit(toks, allowed_tokens=(5, 9))
+        engines[0].run_until_drained()
+    work = ([warm[i % 3] for i in range(24)], new)
+    got, errors = ([], []), []
+    start = threading.Barrier(2)
+
+    def serve(k):
+        try:
+            start.wait(30)
+            eng = engines[k]
+            for toks in work[k]:
+                rid = eng.submit(toks, allowed_tokens=(5, 9))
+                assert eng.step() == rid
+                got[k].append(eng.results[rid]["scores"])
+        except Exception:
+            errors.append(traceback.format_exc())
+
+    threads = [threading.Thread(target=serve, args=(k,)) for k in range(2)]
+    [t.start() for t in threads]
+    [t.join(timeout=600) for t in threads]
+    assert not errors, errors[0]
+    recs = [list(e.batch_records) for e in engines]
+    assert not any(r.compiled for r in recs[0][len(warm):])
+    assert sum(r.compiled for r in recs[1]) == len(new)
+    assert all(f.graph is not None for e in engines for f in e.graphs())
+    want = (_solo_scores(cfg, params, dev, warm), _solo_scores(
+        cfg, params, dev, new))
+    for g, w in zip(got[0], [want[0][i % 3] for i in range(24)]):
+        assert max(abs(g[t] - w[t]) for t in (5, 9)) < 1e-5
+    for g, w in zip(got[1], want[1]):
+        assert max(abs(g[t] - w[t]) for t in (5, 9)) < 1e-5
+
+
+def test_two_instance_serve_trace_on_the_card(dev):
+    """``serve_trace`` over two full-width qwen1.5-0.5b instances on one
+    card (WL1 at a tenth of its token scale, packing on): every request
+    served, no engine error, retry or watchdog trip, and every score
+    within 2e-2 of a cold engine's on the same weights."""
+    from repro_torch.data.workloads import get_trace
+    from repro_torch.launch.serve import make_pool, serve_trace
+    from repro_torch.serving import Rejected
+    pool = make_pool("qwen1.5-0.5b", 2, reduced=False, profile=True,
+                     device=dev, cache_tokens=65536)
+    kw = dict(qps=40.0, scale_tokens=0.1, seed=0, max_requests=24,
+              trace_kw=dict(num_users=4, posts_per_user=6))
+    out = serve_trace("qwen1.5-0.5b", pool=pool, drain_timeout=300.0, **kw)
+    srv = out["server"]
+    assert out["served"] == out["requests"] == 24
+    for name in ("engine_errors", "requests_retried", "watchdog_trips",
+                 "requests_rejected"):
+        assert srv.metrics.total(name) == 0, name
+    trace = get_trace("post_recommendation", kw["qps"],
+                      scale_tokens=kw["scale_tokens"], materialize_tokens=True,
+                      vocab=512, seed=0, **kw["trace_kw"])
+    eng = pool.engines["inst0"]
+    want = _solo_scores(eng.cfg, eng.params, dev,
+                        [r.tokens for r in trace.requests[:24]])
+    for o, w in zip(out["outcomes"], want):
+        assert not isinstance(o, Rejected)
+        assert max(abs(o["scores"][t] - w[t]) for t in (5, 9)) < 2e-2
