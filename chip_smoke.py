@@ -7,14 +7,33 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU (H100):
 
 (``--seed``, default 0, draws every weight and input from another seed.)
 It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
-then runs phases 2-10 below for each model of ``SPECS``: qwen1.5-0.5b, then
-granite-3-8b at full width (40 layers, d_model 4096, GQA 32/8, head_dim
-128, d_ff 12,800; qwen's weights, engines and decode cache are freed
-first), each at its own widths and shapes (``Spec``: a model's extra
-attention and decode cases of phase 2, and whether it runs the order and
-graph memory checks of phase 6, are fields of it; qwen has them, granite
-not), and where a width rule refuses f32 at granite's widths phase 2
-checks that the refusal names its rule. It raises on the first failure:
+then, for each model of ``SPECS`` in turn (the previous model's weights,
+engines and caches freed first), runs the phases below that the model's
+``Spec.phases`` names (names of ``PHASES``; an unknown name fails), each
+at the model's own widths and shapes, and prints each phase's seconds:
+
+- qwen1.5-0.5b: phases 2-10, with phase 6, phase 8's trace replay and
+  traced long step, and phase 10's (a)-(c);
+- granite-3-8b (40 layers, d_model 4096, GQA 32/8, head_dim 128, d_ff
+  12,800): phases 2-10 but phase 6, with phase 10's (d)-(e); where a
+  width rule refuses f32 at its widths, phase 2 checks that the refusal
+  names its rule;
+- llama3.1-8b, the paper's own model (32 layers, d_model 4096, GQA 32/8,
+  d_ff 14,336, vocab 128,256, an untied head): phase 2's MLP rows at its
+  d_ff (its RMSNorm, attention and decode shapes are granite's), then
+  phases 3-5, 7 and 8 (the MIL table at the paper's model). Phases 9-10
+  stay on qwen and granite, which drive the offload tier and the serving
+  plane at llama's attention widths;
+- internvl2-2b (vlm: 24 layers, d_model 2048, GQA 16/8 at head_dim 128,
+  d_ff 8,192): phase 2's rows at its new shapes (RMSNorm and the MLP at D
+  2048, every attention mode and flash decoding at G 2), phase 3 with the
+  embeds input, phases 4-5 and phase 7's decode chain;
+- musicgen-large (audio: 48 layers, d_model 2048, 32 MHA heads of 64,
+  a 2,048-code vocabulary): phase 2's attention and decode rows at 32
+  heads, G 1 (its RMSNorm and MLP rows are internvl2's), phases 3-5 and
+  phase 7's decode chain; its engines score two ids of its vocabulary.
+
+It raises on the first failure:
 
   1. prints the card (``nvidia-smi`` name and power limit) and build time;
   2. holds each kernel against its plain PyTorch version on the card at
@@ -33,18 +52,21 @@ checks that the refusal names its rule. It raises on the first failure:
      is printed beside the kernel's reading against it and the readings
      of kernels that skip one live key tile or d_ff slice (``limit``
      lines);
-  3. runs full-width 24-layer qwen1.5-0.5b forwards (random weights from a
+  3. runs full-width forwards of the model (random weights from a
      seed) through the kernels and through the plain versions —
      ``prefill`` (S=512), ``prefill_packed`` and
      ``prefill_packed_with_prefix`` at the phase-2 shapes — and compares
      the logits (per segment: max and mean |Δ| limits, scaled by the plain
      logits' std where it passes qwen's (``logits_limits``), and the plain
-     argmax within the kernel's top 5);
+     argmax within the kernel's top 5); for a vlm, ``build(cfg).prefill``
+     on ``embeds`` that are the embedding rows of seeded tokens against
+     ``prefill`` on the tokens (``check_embeds``);
   4. drives the solo path: ``PrefillOnlyEngine(max_pack_requests=1)`` runs
      the profile run, then serves requests of two users that each share a
      1030-token profile prefix — misses first, then prefix-cache hits —
-     checks that every forward launched each kernel (49, 24 and 24 launches
-     per forward, counted through the CUDA graphs' replays) and that the
+     checks that every forward launched each kernel (2L+1, L and L
+     launches per forward, counted through the CUDA graphs' replays:
+     49/24/24 at qwen) and that the
      scores of every hit, at both (S, P) shapes, match a cold engine's;
      each ``step`` line says whether the step captured its shape key's
      graph or replayed it; prints the warm step latency per shape (median
@@ -172,10 +194,14 @@ checks that the refusal names its rule. It raises on the first failure:
      error, retry, watchdog trip, capture failure or rejection and every
      score within 2e-2 of a cold solo engine, and checks the launches per
      forward;
- 11. prints its total seconds and the ``kernels`` JSON line (every kernel
-     and attention mode: qwen's row at the top level, each model's row and
-     main-path launches under ``models``, ``launches`` their sum), then the
-     result line ``{"ok": true, "device": {...}}`` last.
+ 11. fails unless every kernel launched on each model's main path (its
+     engines, decode chain and depth steps, phase 8's engine steps, phases
+     9-10); prints its total seconds and the ``kernels`` JSON line (every
+     kernel and attention mode: qwen's row at the top level, each model's
+     row and main-path launches under ``models``, or, where another
+     model's row measures the same shape, its launches and ``row_at``
+     naming that model; ``launches`` their sum), then the result line
+     ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when run
 outside a checkout.
@@ -332,20 +358,38 @@ SERVE_E = dict(qps=8.0, scale_tokens=0.1, max_requests=16,
 SERVE_E_CACHE = 16_384
 
 
+# The phases a model can run, in the order run_model runs them (a Spec
+# names those its model runs; a name outside this list fails): phase 2's
+# kernel rows (RMSNorm, dense attention, MLP, the packed modes, flash
+# decoding), phase 3's full-width forwards and (vlm) the embeds input,
+# phases 4-5's engines, phase 6's order and graph memory checks, phase 7's
+# decode chain and depth run, phase 8's long inputs with its traced long
+# step and trace replay, phase 9's offload tier and phase 10's replays.
+PHASES = ("norm_rows", "attn_rows", "mlp_rows", "packed_rows", "decode_rows",
+          "forwards", "embeds", "solo", "packed", "order", "graph_memory",
+          "decode", "decode_depth", "long", "long_trace", "replay", "offload",
+          "serve_full_scale", "serve_packed_chaos", "serve_offload",
+          "serve_short")
+ROW_PHASES = PHASES[:5]
+
+
 class Spec(typing.NamedTuple):
     """One model's phases: its config, the packed-hit shape (prefix and
     suffix lengths of 4 rows, pmax, S; also the packed engine's profiles
     and posts, and the least rows and the pmax (0: any) that one of the
-    packed engine's hit steps must have), the decode depth batch, the kernel
-    rows' token counts (the MLP's first T is its JSON row; RMSNorm's JSON
-    row is norm_t, and it is timed at every T of norm_ts), extra dense
-    attention cases (label, B, Sq, Sk, H, KV, d, kwargs) and extra decode
-    cases (label, B, S, H, KV, d, kv_len or "ragged", softcap) for phase 2,
-    whether the model's extra phases run (phase 6's order and graph memory
-    checks; phase 8's trace replay and its traces of a warm long step and
-    of a warm replay hit), the eager forwards' warm step medians printed
-    beside this run's, and the peak-memory ladder's S of phase 8 (its last
-    also the long attention, MLP and RMSNorm rows' S and T)."""
+    packed engine's hit steps must have), the decode depth batch (also
+    flash decoding's row), the kernel rows' token counts (the MLP's first
+    T is its JSON row; RMSNorm's JSON row is norm_t, and it is timed at
+    every T of norm_ts), extra dense attention cases (label, B, Sq, Sk, H,
+    KV, d, kwargs) and extra decode cases (label, B, S, H, KV, d, kv_len or
+    "ragged", softcap) for phase 2, the phases the model runs (names of
+    PHASES), the eager forwards' warm step medians printed beside this
+    run's, the peak-memory ladder's S of phase 8 (its last also the long
+    attention, MLP and RMSNorm rows' S and T), the base dense attention
+    cases phase 2 runs, the answer token ids its engines score (inside
+    the vocabulary). A kernel whose row phase (ROW_PHASE) the model does
+    not run takes its row from an earlier model at the same shape
+    (row_models)."""
     arch: str
     plens: tuple
     slens: tuple
@@ -359,14 +403,17 @@ class Spec(typing.NamedTuple):
     norm_ts: tuple
     extra_attn: tuple
     extra_dec: tuple
-    extra_phases: bool
+    phases: tuple
     eager_ms: dict
     long_lens: tuple
+    attn_cases: tuple = ("causal", "causal_2048", "q_offset")
+    answer: tuple = (YES, NO)
 
 
 # qwen1.5-0.5b, the earlier slices' model. Its extra cases cover the
 # kernels' other options (window, softcap, kv_valid, head_dim 32, ragged
-# and GQA caches), and the order and graph memory checks run at its
+# and GQA caches), and the order and graph memory checks, the trace replay
+# and the serving plane's full-scale, packed and chaos replays run at its
 # widths, where they were set.
 QWEN = Spec("qwen1.5-0.5b", plens=(1024, 768, 512, 1024),
             slens=(128, 96, 160, 128), pmax=1024, hit_s=512, hit_nb=4,
@@ -382,7 +429,11 @@ QWEN = Spec("qwen1.5-0.5b", plens=(1024, 768, 512, 1024),
                 ("gqa", 4, 8192, 16, 2, 64, (8192, 5000, 77, 8192), 0.0),
                 ("d32_softcap", 4, 4100, 8, 4, 32, (4100, 4099, 2050, 1),
                  50.0)),
-            extra_phases=True, eager_ms=EAGER_WARM_MS,
+            phases=ROW_PHASES + (
+                "forwards", "solo", "packed", "order", "graph_memory",
+                "decode", "decode_depth", "long", "long_trace", "replay",
+                "offload", "serve_full_scale", "serve_packed_chaos"),
+            eager_ms=EAGER_WARM_MS,
             long_lens=(8192, 16384, 32768, 65536))
 # granite-3-8b at full width (40 layers, d_model 4096, 32/8 heads of 128,
 # d_ff 12,800). Its profiles are half qwen's: autotune_packing sets a token
@@ -393,6 +444,8 @@ QWEN = Spec("qwen1.5-0.5b", plens=(1024, 768, 512, 1024),
 # shape cost model may split them by their prefix lengths: a packed hit
 # step of 2 or more rows is required. Its logits have twice qwen's scale
 # (std ~0.02 sqrt(4096) = 1.3), which logits_limits reads from each run.
+# The offload tier restores here, and the serving plane's offload and
+# short replays run at its widths.
 GRANITE = Spec("granite-3-8b", plens=(512, 384, 256, 512),
                slens=(128, 96, 160, 128), pmax=512, hit_s=512, hit_nb=2,
                hit_pmax=0, dec_b=8,
@@ -400,9 +453,54 @@ GRANITE = Spec("granite-3-8b", plens=(512, 384, 256, 512),
                norm_ts=(8, 128, 512, 1024, 2048), extra_attn=(),
                extra_dec=(("ragged_tiles", 8, DEC_S, 32, 8, 128, "tiles",
                            0.0),),
-               extra_phases=False, eager_ms={},
+               phases=ROW_PHASES + (
+                   "forwards", "solo", "packed", "decode", "decode_depth",
+                   "long", "offload", "serve_offload", "serve_short"),
+               eager_ms={},
                long_lens=(8192, 16384, 32768))
-SPECS = (QWEN, GRANITE)
+# llama3.1-8b, the paper's own model, at full width (32 layers, d_model
+# 4096, 32/8 heads of 128, d_ff 14,336, vocab 128,256, an untied head:
+# 16.1 GB of weights). Its attention, RMSNorm and decode shapes are
+# granite's, whose rows phase 2 measures; its MLP is new. Phases 3-8 run
+# at its widths, phase 8 at the paper's model; the offload tier and the
+# serving plane (phases 9-10) run at qwen's and granite's, the latter at
+# llama's attention widths. Packed shapes as granite's; the decode depth
+# run's 8 x 32,768 slots are 34 GB of cache beside the weights.
+LLAMA = Spec("llama3.1-8b", plens=(512, 384, 256, 512),
+             slens=(128, 96, 160, 128), pmax=512, hit_s=512, hit_nb=2,
+             hit_pmax=0, dec_b=8, mlp_ts=(512, 2048), norm_t=2048,
+             norm_ts=(), extra_attn=(), extra_dec=(),
+             phases=("mlp_rows", "forwards", "solo", "packed", "decode",
+                     "decode_depth", "long"),
+             eager_ms={}, long_lens=(8192, 16384, 32768))
+# internvl2-2b (vlm) at full width: 24 layers, d_model 2048, 16/8 heads of
+# 128 (G 2), d_ff 8,192, an untied head. Phase 2's rows at its new shapes
+# (RMSNorm and the MLP at D 2048, every attention mode and flash decoding
+# at G 2), the full-width forwards and the embeds input, both engines and
+# the decode chain; packed shapes as granite's.
+INTERNVL2 = Spec("internvl2-2b", plens=(512, 384, 256, 512),
+                 slens=(128, 96, 160, 128), pmax=512, hit_s=512, hit_nb=2,
+                 hit_pmax=0, dec_b=8, mlp_ts=(512, 8), norm_t=512,
+                 norm_ts=(512,), extra_attn=(), extra_dec=(),
+                 phases=ROW_PHASES + ("forwards", "embeds", "solo", "packed",
+                                      "decode"),
+                 eager_ms={}, long_lens=(),
+                 attn_cases=("causal", "q_offset"))
+# musicgen-large (audio) at full width: 48 layers, d_model 2048, 32 MHA
+# heads of 64 (G 1), d_ff 8,192, a 2,048-token codebook. Its RMSNorm and MLP
+# are internvl2's shapes; phase 2 runs every attention mode and flash
+# decoding at 32 heads (G 1: the GEMV decode kernel), then the forwards,
+# both engines and the decode chain. Its engines score two codes of the
+# codebook.
+MUSICGEN = Spec("musicgen-large", plens=(512, 384, 256, 512),
+                slens=(128, 96, 160, 128), pmax=512, hit_s=512, hit_nb=2,
+                hit_pmax=0, dec_b=8, mlp_ts=(), norm_t=0, norm_ts=(),
+                extra_attn=(), extra_dec=(),
+                phases=("attn_rows", "packed_rows", "decode_rows", "forwards",
+                        "solo", "packed", "decode"),
+                eager_ms={}, long_lens=(),
+                attn_cases=("causal", "q_offset"), answer=(1262, 705))
+SPECS = (QWEN, GRANITE, LLAMA, INTERNVL2, MUSICGEN)
 
 # JSON entries: (name, launch counter, TPU kernel it replaces); the entry
 # "flash_attention" is the attention kernel's dense mode
@@ -418,6 +516,19 @@ KERNELS = (
     ("decode_attention", "decode_attention",
      "src/repro/kernels/decode_attention.py:55"),
 )
+# the phase that measures each kernel's JSON row, and the config fields
+# that set the shape of the kernel there
+ROW_PHASE = {"rmsnorm": "norm_rows", "flash_attention": "attn_rows",
+             "flash_attention[segmented]": "packed_rows",
+             "flash_attention[positioned]": "packed_rows",
+             "fused_mlp": "mlp_rows", "decode_attention": "decode_rows"}
+_ATTN_FIELDS = ("num_heads", "num_kv_heads", "head_dim", "dtype")
+ROW_FIELDS = {"rmsnorm": ("d_model", "dtype"),
+              "fused_mlp": ("d_model", "d_ff", "dtype"),
+              "flash_attention": _ATTN_FIELDS,
+              "flash_attention[segmented]": _ATTN_FIELDS,
+              "flash_attention[positioned]": _ATTN_FIELDS,
+              "decode_attention": _ATTN_FIELDS}
 SOURCE = {"rmsnorm": "rmsnorm", "fused_mlp": "fused_mlp",
           "decode_attention": "decode_attention"}
 # the bf16 tensor-core kernels a traced step must name (the f32 CUDA-core
@@ -467,6 +578,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s (parallel nvcc, sm_90a)",
           flush=True)
 
+    row_at = row_models()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     results, launches = {}, {}
@@ -477,11 +589,15 @@ def main() -> int:
 
     lines = []
     for name, counter, replaces in KERNELS:
-        by_model = {arch: dict(results[arch][name],
-                               launches=launches[arch][counter])
+        # a model whose shapes another model's row measures names it
+        by_model = {arch: (dict(results[arch][name],
+                                launches=launches[arch][counter])
+                           if name in results[arch] else
+                           {"launches": launches[arch][counter],
+                            "row_at": row_at[arch][name]})
                     for arch in results}
         for row in by_model.values():
-            row.pop("f32_err")
+            row.pop("f32_err", None)
         r = by_model[QWEN.arch]
         lines.append({
             "name": name, "route": "cuda",
@@ -501,43 +617,109 @@ def main() -> int:
     return 0
 
 
+def row_models() -> dict:
+    """For each model, each kernel whose row phase it does not run, mapped
+    to the first model before it in SPECS whose phases measure that row at
+    the same ROW_FIELDS of its config; fails where there is none."""
+    from repro_torch.configs import get_config
+
+    def key(arch, name):
+        cfg = get_config(arch)
+        return tuple(getattr(cfg, f) for f in ROW_FIELDS[name])
+
+    out = {}
+    for i, spec in enumerate(SPECS):
+        out[spec.arch] = {}
+        for name, phase in ROW_PHASE.items():
+            if phase in spec.phases:
+                continue
+            at = [o.arch for o in SPECS[:i] if phase in o.phases
+                  and key(o.arch, name) == key(spec.arch, name)]
+            if not at:
+                fail(f"{spec.arch}: no model before it measures the "
+                     f"{name} row at its {ROW_FIELDS[name]} "
+                     f"{key(spec.arch, name)}")
+            out[spec.arch][name] = at[0]
+    return out
+
+
 def run_model(torch, dev, spec: Spec):
-    """Every phase at one model's widths. Returns the kernel rows and the
-    launches of its main path (solo engine, packed engine, decode steps,
-    phase 8's engine steps)."""
+    """The phases ``spec.phases`` names, at one model's widths, in the
+    order of PHASES; prints each phase's seconds. Returns the kernel rows
+    and the launches of its main path (solo engine, packed engine, decode
+    chain and depth steps, phase 8's engine steps, offload tier, serving
+    plane), in which every kernel must have launched."""
+    unknown = sorted(set(spec.phases) - set(PHASES))
+    if unknown or len(set(spec.phases)) != len(spec.phases):
+        fail(f"{spec.arch}: unknown or repeated phases "
+             f"{unknown or spec.phases}")
     print(f"=== {spec.arch}: device memory allocated "
           f"{torch.cuda.memory_allocated()} bytes, reserved "
           f"{torch.cuda.memory_reserved()}, free "
           f"{torch.cuda.mem_get_info(dev)[0]} of "
-          f"{torch.cuda.mem_get_info(dev)[1]}", flush=True)
+          f"{torch.cuda.mem_get_info(dev)[1]}; phases {list(spec.phases)}",
+          flush=True)
     t0 = time.perf_counter()
-    results = check_kernels(torch, dev, spec)
-    results.update(check_packed_kernels(torch, dev, spec))
-    results.update(check_decode_kernel(torch, dev, spec))
+    took = {}
+
+    def phase(names, fn, *args):
+        """Run ``fn`` where the Spec names one of ``names``; record its
+        seconds. Returns its result, or {} where it does not run."""
+        names = (names,) if isinstance(names, str) else names
+        if not set(names) & set(spec.phases):
+            return {}
+        t = time.perf_counter()
+        out = fn(*args)
+        key = "+".join(n for n in names if n in spec.phases)
+        took[key] = round(took.get(key, 0.0) + time.perf_counter() - t, 1)
+        return out
+
+    results = dict(phase(("norm_rows", "attn_rows", "mlp_rows"),
+                         check_kernels, torch, dev, spec))
+    results.update(phase("packed_rows", check_packed_kernels, torch, dev,
+                         spec))
+    results.update(phase("decode_rows", check_decode_kernel, torch, dev,
+                         spec))
+    want = {n for n, p in ROW_PHASE.items() if p in spec.phases}
+    if set(results) != want:
+        fail(f"{spec.arch}: phase 2 measured the rows {sorted(results)}, "
+             f"its phases name {sorted(want)}")
     cfg, params = draw_model(torch, dev, spec.arch)
-    check_full_prefill(torch, dev, cfg, params)
-    check_packed_forwards(torch, dev, spec, cfg, params)
-    solo = run_engine(torch, dev, spec, cfg, params)
-    packed = run_packed_engine(torch, dev, spec, cfg, params)
-    if spec.extra_phases:
-        run_order(torch, dev, cfg, params)
-        run_graph_memory(torch, dev, cfg, params)
-    decode = run_decode(torch, dev, spec, cfg, params)
+    if not all(0 <= t < cfg.vocab_size for t in spec.answer):
+        fail(f"{cfg.name}: answer ids {spec.answer} outside the "
+             f"{cfg.vocab_size}-token vocabulary")
+    phase("forwards", check_full_prefill, torch, dev, cfg, params)
+    phase("forwards", check_packed_forwards, torch, dev, spec, cfg, params)
+    phase("embeds", check_embeds, torch, dev, cfg, params)
+    solo = phase("solo", run_engine, torch, dev, spec, cfg, params)
+    packed = phase("packed", run_packed_engine, torch, dev, spec, cfg,
+                   params)
+    phase("order", run_order, torch, dev, cfg, params)
+    phase("graph_memory", run_graph_memory, torch, dev, cfg, params)
+    decode = phase(("decode", "decode_depth"), run_decode, torch, dev, spec,
+                   cfg, params)
     gc.collect()                  # the decode cache goes back to the card
     torch.cuda.empty_cache()
-    long = run_long_inputs(torch, dev, spec, cfg, params)
+    long = phase(("long", "long_trace", "replay"), run_long_inputs, torch,
+                 dev, spec, cfg, params)
     gc.collect()                  # phase 8's engines go back to the card
     torch.cuda.empty_cache()
-    offload = run_offload(torch, dev, cfg, params)
-    serving = run_serving(torch, dev, spec, cfg, params)
+    offload = phase("offload", run_offload, torch, dev, cfg, params)
+    serving = phase(("serve_full_scale", "serve_packed_chaos",
+                     "serve_offload", "serve_short"), run_serving, torch,
+                    dev, spec, cfg, params)
     paths = (solo, packed, decode, long, offload, serving)
     launches = {k: sum(p.get(k, 0) for p in paths)
                 for k in set().union(*paths)}
     print(f"{spec.arch}: main path launches (solo engine + packed engine + "
-          f"decode steps + long requests and replay + offload tier + "
-          f"serving plane): "
+          f"decode chain and depth steps + long requests and replay + "
+          f"offload tier + serving plane): "
           f"{launches}; phases took "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s; seconds by phase {took}",
+          flush=True)
+    idle = [k for k in kernel_modules() if not launches.get(k)]
+    if idle:
+        fail(f"{spec.arch}: the main path launched no {idle}")
     return results, launches
 
 
@@ -649,7 +831,8 @@ def check_kernels(torch, dev, spec: Spec):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
     out = {}
-    print(f"phase 2 at {spec.arch} widths", flush=True)
+    print(f"phase 2 at {spec.arch} widths: "
+          f"{[p for p in spec.phases if p in ROW_PHASES]}", flush=True)
 
     # RMSNorm at the model's d_model and every T of the main path
     # (spec.norm_ts: a decode step's batch, a hit, a packed hit, a packed
@@ -658,7 +841,7 @@ def check_kernels(torch, dev, spec: Spec):
     # on (an entry's max_abs_err), and the JSON row's shape also in f32
     # (f32_err)
     D = cfg.d_model
-    for T in spec.norm_ts:
+    for T in spec.norm_ts if "norm_rows" in spec.phases else ():
         errs = {}
         dtypes = ((torch.float32, F32_TOL), (bf16, BF16_TOL)) \
             if T == spec.norm_t else ((bf16, BF16_TOL),)
@@ -693,14 +876,16 @@ def check_kernels(torch, dev, spec: Spec):
     # heads; the first is the JSON row, causal_2048 the solo miss's shape,
     # q_offset the solo hit's
     H, KV, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    cases = [
+    cases = [c for c in (
         ("causal", 1, 512, 512, H, KV, d, dict()),
         ("causal_2048", 1, 2048, 2048, H, KV, d, dict()),
         ("q_offset", 1, 128, 1152, H, KV, d, dict(q_offset=1024)),
-    ]
+    ) if c[0] in spec.attn_cases]
     cases += spec.extra_attn
+    if "attn_rows" not in spec.phases:
+        cases = []
     f32_attn = builds(fa.width_rule, d, torch.float32)
-    if not f32_attn:
+    if cases and not f32_attn:
         q32 = randn(1, 64, H, d, dtype=torch.float32)
         width_refused(torch, f"flash_attention float32 head_dim {d}",
                       lambda: fa.flash_attention(q32, q32[:, :, :KV],
@@ -760,13 +945,14 @@ def check_kernels(torch, dev, spec: Spec):
     # decode step's batch, a solo hit's 128, the packed hit's 512 (the JSON
     # row) and a miss's 2048
     D = cfg.d_model
+    mlp_ts = spec.mlp_ts if "mlp_rows" in spec.phases else ()
     f32_mlp = builds(fm.width_rule, D, torch.float32)
-    if not f32_mlp:
+    if mlp_ts and not f32_mlp:
         x32 = randn(8, D, dtype=torch.float32)
         w32 = randn(D, 64, dtype=torch.float32)
         width_refused(torch, f"fused_mlp float32 D {D}",
                       lambda: fm.fused_mlp(x32, w32, w32, w32.T.contiguous()))
-    for T in spec.mlp_ts:
+    for T in mlp_ts:
         dtypes = ((torch.float32, F32_TOL), (bf16, MLP_BF16_TOL)) \
             if T == spec.mlp_ts[0] and f32_mlp else ((bf16, MLP_BF16_TOL),)
         row = check_mlp(torch, dev, cfg, randn, T, dtypes)
@@ -1458,6 +1644,42 @@ def check_packed_forwards(torch, dev, spec: Spec, cfg, params) -> None:
         compare_rows(torch, got, want, what)
 
 
+def check_embeds(torch, dev, cfg, params) -> None:
+    """Phase 3, the vlm input: ``build(cfg).prefill`` on ``embeds`` that
+    are the embedding rows of seeded tokens, against ``prefill`` on those
+    tokens, on the card: the logits (per row within the full-width limits,
+    the tokens' argmax in the top 5; printed whether equal bit for bit) and
+    the kept KV (within BF16_TOL), 2L+1/L/L launches, and the caller's
+    embeds unchanged."""
+    import numpy as np
+    from repro_torch.models.model import build
+    api = build(cfg)
+    rng = np.random.default_rng(SEED + 12)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 512)),
+                           device=dev)
+    with torch.no_grad():
+        rows = params["embed"]["tok"][toks]
+        before = rows.clone()
+        want, want_kv = api.prefill(params, {"tokens": toks}, kv_keep=512)
+        reset_launches()
+        got, got_kv = api.prefill(params, {"embeds": rows}, kv_keep=512)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    if kernel_launches(launches) != per_forward(cfg):
+        fail(f"embeds prefill launches {launches}, expected "
+             f"{per_forward(cfg)}")
+    if not torch.equal(rows, before):
+        fail("the embeds prefill wrote into the caller's embeds")
+    kv_err = max(compare(torch, got_kv[k], want_kv[k], BF16_TOL,
+                         f"embeds prefill kept {k}") for k in ("k", "v"))
+    print(f"{cfg.name} embeds prefill ({tuple(rows.shape)} {rows.dtype} "
+          f"embedding rows) vs token prefill: logits equal bit for bit: "
+          f"{bool(torch.equal(got, want))}; kept KV max|Δ|={kv_err:.4e}",
+          flush=True)
+    compare_rows(torch, got, want, f"{cfg.name} embeds prefill",
+                 names=("embeds", "tokens"), unit="row")
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1471,6 +1693,7 @@ def run_engine(torch, dev, spec: Spec, cfg, params):
     import numpy as np
     from repro_torch.core.engine import EngineConfig, PrefillOnlyEngine
     rng = np.random.default_rng(SEED + 1)
+    answer = spec.answer
     users = [rng.integers(0, cfg.vocab_size, PROFILE_LEN).tolist()
              for _ in range(2)]
     trace = [users[i % 2] + rng.integers(0, cfg.vocab_size,
@@ -1488,7 +1711,7 @@ def run_engine(torch, dev, spec: Spec, cfg, params):
           f"pearson >= {FIT_PEARSON}: {fit_ok(eng.jct_model)})", flush=True)
     served = []
     for toks in trace + trace:               # pass 2 reuses each whole chain
-        rid = eng.submit(toks, allowed_tokens=(YES, NO))
+        rid = eng.submit(toks, allowed_tokens=answer)
         if eng.step() != rid:
             fail("the engine served another request than the one queued")
         res, rec = eng.results[rid], eng.batch_records[-1]
@@ -1497,7 +1720,7 @@ def run_engine(torch, dev, spec: Spec, cfg, params):
               f"n_cached={res['n_cached']} "
               f"S={rec.S} P={rec.pmax} wall_ms={rec.wall * 1e3:.3f} "
               f"first_use={rec.compiled} graph={graph_use(rec)} "
-              f"P(yes)={res['scores'].get(YES)}", flush=True)
+              f"P(yes)={res['scores'].get(answer[0])}", flush=True)
     torch.cuda.synchronize()
     launches = read_launches()               # the main path ends here
     expect = {k: v * eng.forwards for k, v in per_forward(cfg).items()}
@@ -1523,14 +1746,14 @@ def run_engine(torch, dev, spec: Spec, cfg, params):
     for toks, res, rec in served[2:]:
         key = tuple(toks)
         if key not in cold_scores:
-            rid = cold.submit(toks, allowed_tokens=(YES, NO))
+            rid = cold.submit(toks, allowed_tokens=answer)
             cold.step()
             ref = cold.results[rid]
             if ref["n_cached"] != 0:
                 fail("the cold engine hit its cache")
             cold_scores[key] = ref["scores"]
         diff = max(abs(cold_scores[key][t] - res["scores"][t])
-                   for t in (YES, NO))
+                   for t in answer)
         shape = (rec.S, rec.pmax)
         worst[shape] = max(worst.get(shape, 0.0), diff)
     print(f"{cfg.name} hits vs cold engine, max |score diff| per (S, P): "
@@ -1548,7 +1771,7 @@ def run_engine(torch, dev, spec: Spec, cfg, params):
         print(f"{cfg.name} step latency S={S} P={P}: warm wall median "
               f"{statistics.median(walls):.3f} ms, max {max(walls):.3f} ms "
               f"(n={len(walls)}{eager})", flush=True)
-    trace_steps(torch, eng, cfg, rng, warm_medians(eng))
+    trace_steps(torch, eng, cfg, rng, warm_medians(eng), answer)
     report_graphs(torch, eng, f"{cfg.name} solo engine")
     return launches
 
@@ -1566,7 +1789,7 @@ def run_packed_engine(torch, dev, spec: Spec, cfg, params):
     import numpy as np
     from repro_torch.core.engine import EngineConfig, PrefillOnlyEngine
     rng = np.random.default_rng(SEED + 3)
-    V = cfg.vocab_size
+    V, answer = cfg.vocab_size, spec.answer
 
     eng = PrefillOnlyEngine(cfg, params, EngineConfig(
         cache_capacity_tokens=65536), device=dev)
@@ -1599,7 +1822,7 @@ def run_packed_engine(torch, dev, spec: Spec, cfg, params):
 
     waves = round_waves(2) + round_waves(2)
     def serve(engine, reqs):
-        ids = [engine.submit(t, allowed_tokens=(YES, NO)) for t in reqs]
+        ids = [engine.submit(t, allowed_tokens=answer) for t in reqs]
         recs = []
         while engine.queue:
             engine.step()
@@ -1657,7 +1880,7 @@ def run_packed_engine(torch, dev, spec: Spec, cfg, params):
             if g["n_cached"] != w["n_cached"] or "corrupt" in g:
                 fail(f"packed vs solo: {g} vs {w}")
             worst = max(worst, max(abs(g["scores"][t] - w["scores"][t])
-                                   for t in (YES, NO)))
+                                   for t in answer))
     print(f"{cfg.name} packed engine vs solo engine, max |score diff| over "
           f"{sum(len(g) for _, g, _, _, _ in served)} requests: "
           f"{worst:.3e} (gate {SCORE_GATE}); stats: "
@@ -1708,7 +1931,7 @@ def run_packed_engine(torch, dev, spec: Spec, cfg, params):
     medians = warm_medians(eng)
     for kind, reqs in round_waves(1):
         for t in reqs:
-            eng.submit(t, allowed_tokens=(YES, NO))
+            eng.submit(t, allowed_tokens=answer)
         trace_one_step(torch, eng, kind, medians, packed=True)
     report_graphs(torch, eng, f"{cfg.name} packed engine")
     return launches
@@ -1959,30 +2182,42 @@ def graph_traces(vocab: int):
 
 # ---- phase 6: the dense decode path ------------------------------------------
 def run_decode(torch, dev, spec: Spec, cfg, params):
-    """Full-width decode through ``build(cfg)``: the consistency check at
-    B=2, then the depth run at B=spec.dec_b, S=32768. Returns the depth
-    run's launches (its 8 steps are the decode path's counted run)."""
+    """Full-width decode through ``build(cfg)``, the parts the Spec names:
+    the consistency chain at B=2 (``decode``), then the depth run at
+    B=spec.dec_b, S=32768 (``decode_depth``). Returns the launches of the
+    decode path's counted runs: the chain's kernel steps and the depth
+    run's 8 steps."""
     from repro_torch.models.model import build
     api = build(cfg)
-    check_decode_consistency(torch, dev, api, params)
-    gc.collect()
-    torch.cuda.empty_cache()
-    return run_decode_depth(torch, dev, api, params, spec.dec_b)
+    total = {}
+    runs = (("decode", lambda: check_decode_consistency(torch, dev, api,
+                                                         params)),
+            ("decode_depth", lambda: run_decode_depth(torch, dev, api, params,
+                                                      spec.dec_b)))
+    for name, run in runs:
+        if name in spec.phases:
+            for k, v in run().items():
+                total[k] = total.get(k, 0) + v
+            gc.collect()
+            torch.cuda.empty_cache()
+    return total
 
 
-def check_decode_consistency(torch, dev, api, params) -> None:
+def check_decode_consistency(torch, dev, api, params):
     """``prefill`` of DEC_PREFIX tokens fills an ``init_cache(2, 2048)``;
     DEC_STEPS ``decode_step``s then feed the next tokens of a seeded
     sequence, and each step's logits are held against ``prefill`` of the
     sequence up to that token — through the kernels, then through the
     plain versions — within the full-width logits limits, with the
-    prefill's argmax in the decode's top 5."""
+    prefill's argmax in the decode's top 5. Returns the launches of the
+    kernel route's decode steps."""
     import numpy as np
     cfg = api.cfg
     B, P = DEC_CONS_B, DEC_PREFIX
     rng = np.random.default_rng(SEED + 4)
     seq = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                        (B, P + DEC_STEPS)), device=dev)
+    total = {}
     for route in ("kernels", "plain"):
         ctx = plain_versions() if route == "plain" else contextlib.nullcontext()
         with torch.no_grad(), ctx:
@@ -1995,7 +2230,11 @@ def check_decode_consistency(torch, dev, api, params) -> None:
                 pos = torch.full((B,), P + i, dtype=torch.int32, device=dev)
                 reset_launches()
                 got, cache = api.decode_step(params, seq[:, P + i], cache, pos)
-                launches = kernel_launches(read_launches())
+                step = read_launches()
+                launches = kernel_launches(step)
+                if route == "kernels":
+                    for k, v in step.items():
+                        total[k] = total.get(k, 0) + v
                 want, _ = api.prefill(params, {"tokens": seq[:, :P + i + 1]})
                 torch.cuda.synchronize()
                 expect = (per_decode_step(cfg) if route == "kernels"
@@ -2007,6 +2246,7 @@ def check_decode_consistency(torch, dev, api, params) -> None:
                              f"{cfg.name} decode vs prefill ({route}) step "
                              f"{i} position {P + i}",
                              names=("decode", "prefill"), unit="row")
+    return total
 
 
 def run_decode_depth(torch, dev, api, params, B: int):
@@ -2141,16 +2381,19 @@ def run_long_inputs(torch, dev, spec: Spec, cfg, params):
     from repro_torch.core.kv_policy import MemoryModel
     from repro_torch.runtime.hw import H100_SXM as chip
     t0 = time.perf_counter()
+    if "long" not in spec.phases:
+        fail(f"{spec.arch}: phase 8's trace and replay run after its long "
+             f"requests, which the Spec does not name")
     mm = MemoryModel(cfg, chip)
     report_mil(torch, dev, cfg, mm)
     check_long_kernels(torch, dev, spec, cfg)
     check_peak_memory(torch, dev, spec, cfg, params, mm)
     launches, samples = run_long_request(torch, dev, spec, cfg, params, mm)
     roof = calibrate_roofline(cfg, samples)
-    if spec.extra_phases:
+    if "replay" in spec.phases:
         gc.collect()
         torch.cuda.empty_cache()
-        more = run_replay(torch, dev, cfg, params, mm, roof)
+        more = run_replay(torch, dev, spec, cfg, params, mm, roof)
         launches = {k: launches.get(k, 0) + more.get(k, 0)
                     for k in set(launches) | set(more)}
     print(f"{cfg.name} phase 8 took {time.perf_counter() - t0:.1f} s",
@@ -2371,6 +2614,7 @@ def run_long_request(torch, dev, spec: Spec, cfg, params, mm):
     gc.collect()
     torch.cuda.empty_cache()
     rng = np.random.default_rng(SEED + 15)
+    answer = spec.answer
     budget = mm.prefix_budget_tokens(WL2_MAX)
     eng = PrefillOnlyEngine(cfg, params, EngineConfig(
         max_pack_requests=1, cache_capacity_tokens=budget), device=dev)
@@ -2381,7 +2625,7 @@ def run_long_request(torch, dev, spec: Spec, cfg, params, mm):
     for toks in reqs:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        rid = eng.submit(toks, allowed_tokens=(YES, NO))
+        rid = eng.submit(toks, allowed_tokens=answer)
         eng.step()
         rec, res = eng.batch_records[-1], eng.results[rid]
         recs.append((rec, res, torch.cuda.max_memory_allocated()))
@@ -2393,16 +2637,16 @@ def run_long_request(torch, dev, spec: Spec, cfg, params, mm):
         with torch.no_grad():
             logits, _ = tfm.prefill(params, cfg, {"tokens": torch.tensor(
                 [toks], device=dev)})
-        sub = logits[0, [YES, NO]].double().cpu().numpy()
+        sub = logits[0, list(answer)].double().cpu().numpy()
         sub = np.exp(sub - sub.max())
         sub /= sub.sum()
         diff = max(abs(res["scores"].get(t, float("nan")) - p)
-                   for t, p in zip((YES, NO), sub))
+                   for t, p in zip(answer, sub))
         print(f"{cfg.name} long request n_input={res['n_input']} S={rec.S} "
               f"graph={graph_use(rec)} wall_ms={rec.wall * 1e3:.3f} peak "
               f"allocated {peak} bytes (cache budget {budget} tokens, "
               f"{eng.cache.used_blocks * eng.ecfg.block_size} held); "
-              f"P(yes)={res['scores'].get(YES)}, eager {sub[0]:.6f}, "
+              f"P(yes)={res['scores'].get(answer[0])}, eager {sub[0]:.6f}, "
               f"|diff| {diff:.3e} (gate {SCORE_GATE})", flush=True)
         if "corrupt" in res or not diff < SCORE_GATE:
             fail(f"the {n}-token request scored {res} against eager "
@@ -2415,14 +2659,14 @@ def run_long_request(torch, dev, spec: Spec, cfg, params, mm):
         fail("the long requests did not run once each through the "
              f"S={S} graph with every kernel once per use")
     samples.append((n, 0, recs[1][0].wall))
-    if spec.extra_phases:                    # where a long step's time goes
+    if "long_trace" in spec.phases:          # where a long step's time goes
         eng.submit(rng.integers(0, cfg.vocab_size, n).tolist(),
-                   allowed_tokens=(YES, NO))
+                   allowed_tokens=answer)
         trace_one_step(torch, eng, "miss", {})
     for length in LONG_LENGTHS:
         for i in range(3):
             eng.submit(rng.integers(0, cfg.vocab_size, length).tolist(),
-                       allowed_tokens=(YES, NO))
+                       allowed_tokens=answer)
             eng.step()
             rec = eng.batch_records[-1]
             if i and not rec.compiled:
@@ -2452,7 +2696,7 @@ def calibrate_roofline(cfg, samples):
     return roof
 
 
-def run_replay(torch, dev, cfg, params, mm, roof):
+def run_replay(torch, dev, spec: Spec, cfg, params, mm, roof):
     """(d) A reduced ``post_recommendation`` trace (REPLAY_USERS users x
     REPLAY_POSTS posts at full token scale, every request arriving at once)
     through ``PrefillOnlyEngine()`` (packing on) sized by the prefix budget
@@ -2473,6 +2717,7 @@ def run_replay(torch, dev, cfg, params, mm, roof):
     from repro_torch.data.workloads import post_recommendation
     from repro_torch.runtime.hw import H100_SXM as chip
     budget = mm.prefix_budget_tokens(WL1_MAX)
+    answer = spec.answer
     kw = dict(num_users=REPLAY_USERS, posts_per_user=REPLAY_POSTS,
               vocab=cfg.vocab_size, seed=SEED)
     trace = post_recommendation(0.0, materialize_tokens=True, **kw)
@@ -2497,7 +2742,7 @@ def run_replay(torch, dev, cfg, params, mm, roof):
         reset_launches()                     # the replay path starts here
         steps0, forwards0 = len(eng.batch_records), eng.forwards
         t0 = time.perf_counter()
-        ids = [eng.submit(t, allowed_tokens=(YES, NO), now=t0) for t in toks]
+        ids = [eng.submit(t, allowed_tokens=answer, now=t0) for t in toks]
         eng.run_until_drained()
         torch.cuda.synchronize()
         launches = read_launches()           # the replay path ends here
@@ -2513,13 +2758,13 @@ def run_replay(torch, dev, cfg, params, mm, roof):
         lats = np.array([eng.results[r]["latency"] for r in ids])
         worst = 0.0
         for rid, t in zip(ids, toks):
-            c = cold.submit(t, allowed_tokens=(YES, NO))
+            c = cold.submit(t, allowed_tokens=answer)
             cold.step()
             got, want = eng.results[rid], cold.results[c]
             if "corrupt" in got:
                 fail(f"replay: non-finite scores {got}")
             worst = max(worst, max(abs(got["scores"][t] - want["scores"][t])
-                                   for t in (YES, NO)))
+                                   for t in answer))
         hit = (sum(eng.results[r]["n_cached"] for r in ids)
                / sum(len(t) for t in toks))
         steps = []
@@ -2556,7 +2801,7 @@ def run_replay(torch, dev, cfg, params, mm, roof):
     toks = passes[-1][-1]
     post = len(toks) - eng.results[ids[-1]]["n_cached"]
     eng.submit(toks[:-post] + [(t + 1) % V for t in toks[-post:]],
-               allowed_tokens=(YES, NO))
+               allowed_tokens=answer)
     trace_one_step(torch, eng, "hit", {})
     return total
 
@@ -3051,12 +3296,12 @@ def warm_medians(eng):
     return {k: statistics.median(v) for k, v in walls.items()}
 
 
-def trace_steps(torch, eng, cfg, rng, medians) -> None:
+def trace_steps(torch, eng, cfg, rng, medians, answer) -> None:
     """One more warm miss step and one warm hit step (solo)."""
     user = rng.integers(0, cfg.vocab_size, PROFILE_LEN).tolist()
     for label in ("miss", "hit"):
         eng.submit(user + rng.integers(0, cfg.vocab_size, POST_LEN).tolist(),
-                   allowed_tokens=(YES, NO))
+                   allowed_tokens=answer)
         trace_one_step(torch, eng, label, medians)
 
 
@@ -3168,15 +3413,15 @@ def report_trace(torch, prof, label: str, wall: float, expect=(),
 def run_serving(torch, dev, spec: Spec, cfg, params):
     """Phase 10: the in-process serving plane on the card: ``make_pool``
     instances over the model's weights behind the port's ``serve_trace`` or
-    ``AsyncServer`` (two instances on one card, one worker thread each).
-    qwen: (a) WL1 at full token scale, (b) WL1 packed through the server,
-    (c) (b)'s trace under seeded chaos; granite: (d) the offload tier's
-    serving side (restore and route-time prefetch), (e) a short WL1
-    replay. Every replay scrapes ``/metrics`` over HTTP while it runs and
-    reads ``/trace.chrome.json``, holds the served scores against a cold
-    solo engine's (or, under chaos, against (b)'s), and checks that its
-    forwards launched every kernel once per use. Returns the launches of
-    the phase."""
+    ``AsyncServer`` (two instances on one card, one worker thread each),
+    each replay a phase the Spec names: (a) WL1 at full token scale, (b)
+    WL1 packed through the server and (c) (b)'s trace under seeded chaos
+    (qwen); (d) the offload tier's serving side (restore and route-time
+    prefetch) and (e) a short WL1 replay (granite). Every replay scrapes
+    ``/metrics`` over HTTP while it runs and reads ``/trace.chrome.json``,
+    holds the served scores against a cold solo engine's (or, under
+    chaos, against (b)'s), and checks that its forwards launched every
+    kernel once per use. Returns the launches of the phase."""
     from repro_torch.core.engine import EngineConfig, PrefillOnlyEngine
     t0 = time.perf_counter()
     gc.collect()
@@ -3185,12 +3430,11 @@ def run_serving(torch, dev, spec: Spec, cfg, params):
         max_pack_requests=1, cache_capacity_tokens=0,
         graph_memory_bytes=REPLAY_GRAPH_BYTES), device=dev)
     total = {}
+    runs = {"serve_full_scale": serve_full_scale,
+            "serve_packed_chaos": serve_packed_and_chaos,
+            "serve_offload": serve_offload, "serve_short": serve_short}
     with thread_errors() as errors:
-        if spec.extra_phases:
-            runs = (serve_full_scale, serve_packed_and_chaos)
-        else:
-            runs = (serve_offload, serve_short)
-        for run in runs:
+        for run in (runs[p] for p in spec.phases if p in runs):
             for k, v in run(torch, dev, cfg, params, cold).items():
                 total[k] = total.get(k, 0) + v
             gc.collect()

@@ -6,13 +6,44 @@ from __future__ import annotations
 
 import dataclasses
 
+# The families the port runs: the reference's transformer, whose vlm and
+# audio configs are dense blocks with an untied head (vlm may take
+# precomputed embeddings in place of token ids).
+PORTED_FAMILIES = ("dense", "vlm", "audio")
+# The ROADMAP item that brings each family or feature the port refuses.
+UNPORTED = {"moe": "A6, MoE (models/moe.py)",
+            "ssm": "A6, SSM and hybrid (models/mamba2.py)",
+            "hybrid": "A6, SSM and hybrid (models/hybrid.py)",
+            "local_global": "A6, local_global (gemma2)"}
+
+
+def _unported_family(cfg: "ModelConfig"):
+    """``cfg``'s family where the port does not run it yet (MoE, SSM,
+    hybrid), else None."""
+    if cfg.is_moe:
+        return "moe"
+    return None if cfg.family in PORTED_FAMILIES else cfg.family
+
+
+def check_ported(cfg: "ModelConfig") -> None:
+    """Raise ``NotImplementedError``, naming its ROADMAP item, unless the
+    port runs ``cfg``: a family of ``PORTED_FAMILIES``, no experts, no
+    local/global layer pairs."""
+    what = _unported_family(cfg) or (
+        "local_global" if cfg.local_global else None)
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs the {'/'.join(PORTED_FAMILIES)} "
+            f"families; {what} comes with ROADMAP "
+            f"{UNPORTED.get(what, 'A6')}")
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyper-parameters (decoder-only LM backbone).
 
     ``family`` drives block selection in the reference: dense, moe, ssm,
-    hybrid, vlm, audio. The port runs the dense family so far.
+    hybrid, vlm, audio. The port runs ``PORTED_FAMILIES`` (``check_ported``).
     """
 
     name: str
@@ -93,11 +124,19 @@ class ModelConfig:
         """FFN width of the shared attention block (hybrid family)."""
         return self.d_ff if self.d_ff else 4 * self.d_model
 
-    def param_count(self) -> int:
-        """Analytic parameter count of the dense family."""
-        if self.family != "dense":
+    def _dense_formula(self, what: str) -> None:
+        """The quantities below are the reference's dense formulas, which
+        hold for the ported families (local_global configs count the same);
+        an MoE, SSM or hybrid config raises, naming its ROADMAP item."""
+        fam = _unported_family(self)
+        if fam is not None:
             raise NotImplementedError(
-                f"param_count for family {self.family!r} comes with its port")
+                f"{what} for family {fam!r} comes with ROADMAP "
+                f"{UNPORTED.get(fam, 'A6')}")
+
+    def param_count(self) -> int:
+        """Analytic parameter count."""
+        self._dense_formula("param_count")
         D, F, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
         H, KV, hd = self.num_heads, self.num_kv_heads, self.head_dim
         embed = V * D
@@ -107,10 +146,12 @@ class ModelConfig:
         return embed + lm_head + L * per_layer + D
 
     def active_param_count(self) -> int:
-        """Parameters touched per token: every one in the dense family (the
-        reference counts only the routed experts of an MoE config)."""
+        """Parameters touched per token: every one in the ported families
+        (the reference counts only the routed experts of an MoE config)."""
+        self._dense_formula("active_param_count")
         return self.param_count()
 
     def kv_bytes_per_token(self, bytes_per_el: int = 2) -> int:
-        """KV-cache bytes per token across all layers (dense family)."""
+        """KV-cache bytes per token across all layers (ported families)."""
+        self._dense_formula("kv_bytes_per_token")
         return self.num_layers * 2 * self.num_kv_heads * self.head_dim * bytes_per_el

@@ -7,11 +7,17 @@ from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.granite_3_8b import CONFIG as _granite
+from repro_torch.configs.internvl2_2b import CONFIG as _internvl2
+from repro_torch.configs.llama3_1_8b import CONFIG as _llama
+from repro_torch.configs.musicgen_large import CONFIG as _musicgen
 from repro_torch.configs.qwen1_5_0_5b import CONFIG as _qwen
 
 REGISTRY: Dict[str, ModelConfig] = {
     "qwen1.5-0.5b": _qwen,
     "granite-3-8b": _granite,
+    "llama3.1-8b": _llama,
+    "internvl2-2b": _internvl2,
+    "musicgen-large": _musicgen,
 }
 
 

@@ -79,7 +79,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, check_ported
 from repro_torch.core import compiled as _compiled
 from repro_torch.core.compiled import CompiledForward, side_stream
 from repro_torch.core.jct import LinearProxyJCT, PackedShapeJCT, Sample
@@ -147,15 +147,14 @@ class EngineConfig:
 
 
 class PrefillOnlyEngine:
-    """Single-instance engine over a dense model (real tensors on
+    """Single-instance engine over a dense, vlm or audio model, fed token
+    ids as the reference's engine feeds every family (real tensors on
     ``device``: ``"cuda"`` by default, ``"cpu"`` only when asked for)."""
 
     def __init__(self, cfg: ModelConfig, params: Dict,
                  ecfg: Optional[EngineConfig] = None,
                  device: DeviceLike = "cuda"):
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r}: the port's engine runs dense models")
+        check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         with _compiled.device_lock:

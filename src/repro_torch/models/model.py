@@ -1,4 +1,5 @@
-"""Model API: one object per config over the port's dense family.
+"""Model API: one object per config of the port's families (dense, vlm,
+audio; ``configs.base.check_ported``).
 
 Port of ``repro.models.model``'s ``ModelAPI`` and ``build``:
 
@@ -9,18 +10,19 @@ Port of ``repro.models.model``'s ``ModelAPI`` and ``build``:
 
 Parameters are cast to ``cfg.dtype`` on every call, as the reference casts
 them (leaves already in that dtype are passed as they are, so nothing is
-copied). ``decode_step`` updates the cache in place and returns the same
-dict. ``train_loss`` waits for the training slice (ROADMAP A6). The
-sharding argument ``num_shards`` and the dry-run's ``input_specs``,
-``make_batch`` and ``init_cache(abstract=True)`` wait for the sharding and
-dry-run slice (A7).
+copied). ``prefill``'s batch holds ``tokens`` or, in their place,
+``embeds`` (B, S, D). ``decode_step`` updates the cache in place and
+returns the same dict. ``train_loss`` waits for the training slice (ROADMAP
+A8). The sharding argument ``num_shards`` and the dry-run's
+``input_specs``, ``make_batch`` and ``init_cache(abstract=True)`` wait for
+the sharding and dry-run slice (A9).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, check_ported
 from repro_torch.models import layers as L
 from repro_torch.models import params as P
 from repro_torch.models import transformer as tfm
@@ -39,13 +41,13 @@ class ModelAPI:
 
 def _train_loss(*args, **kwargs):
     raise NotImplementedError(
-        "train_loss comes with the training slice of the port (ROADMAP A6)")
+        "train_loss comes with the training slice of the port (ROADMAP A8)")
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
-    """The API of a dense, non-local_global config; other families raise
-    until their slices are ported."""
-    tfm._check_dense(cfg)
+    """The API of a dense, vlm or audio config; other families and
+    local_global configs raise, naming their ROADMAP items."""
+    check_ported(cfg)
     dtype = L.torch_dtype(cfg.dtype)
 
     def cast(params: Dict) -> Dict:

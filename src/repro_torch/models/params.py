@@ -1,4 +1,5 @@
-"""Parameter trees of the dense transformer: seeded init and a numpy bridge.
+"""Parameter trees of the transformer (dense, vlm and audio families): seeded
+init and a numpy bridge.
 
 The tree is the reference's (``repro.models.transformer.model_defs``):
 ``embed/tok`` (V, D); ``blocks/{ln1, ln2, attn/{wq, wk, wv, wo, bq, bk, bv},
@@ -17,7 +18,7 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, check_ported
 from repro_torch.models.layers import torch_dtype
 from repro_torch.runtime.device import DeviceLike, resolve_device
 
@@ -26,9 +27,7 @@ ParamDefs = Dict[Tuple[str, ...], Tuple[Tuple[int, ...], str]]
 
 
 def param_defs(cfg: ModelConfig) -> ParamDefs:
-    if cfg.family != "dense" or cfg.local_global:
-        raise NotImplementedError(
-            f"{cfg.name}: the port builds dense, non-local_global trees")
+    check_ported(cfg)
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     F, V, Ln = cfg.d_ff, cfg.vocab_size, cfg.num_layers
     block = {

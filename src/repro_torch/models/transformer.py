@@ -1,15 +1,19 @@
-"""Decoder-only transformer, dense family: the PrefillOnly serving forwards.
+"""Decoder-only transformer, dense blocks: the PrefillOnly serving forwards.
 
 Port of ``repro.models.transformer``'s ``head_weight``, ``forward_full``
-(dense configs, with ``kv_keep``, ``positions``, ``seg_ids`` and
+(with ``embeds``, ``kv_keep``, ``positions``, ``seg_ids`` and
 ``kv_indices``), ``prefill``, ``prefill_packed``, ``prefill_with_prefix``,
 ``prefill_packed_with_prefix``, and the dense branches of ``init_cache``,
 ``_block_decode`` and ``decode_step`` (one token against a KV cache, ring
-caches for sliding windows).
+caches for sliding windows), for the dense, vlm and audio families
+(``configs.base.check_ported``). ``forward_full``, ``prefill`` and
+``prefill_with_prefix`` take precomputed embeddings (``embeds`` (B, S, D),
+cast to the model dtype) in place of token ids, as the reference's do; the
+packed forwards and ``decode_step`` take token ids only, as there.
 Parameters keep the reference's stacked tree (``blocks/*`` with a leading
 layer axis, ``embed/tok``, ``final_norm``; see ``models/params.py``), and
-the layer scan becomes a Python loop over layers. The local_global (gemma2)
-and fp8-weight branches come with later slices.
+the layer scan becomes a Python loop over layers. The local_global (gemma2),
+MoE and fp8-weight branches come with later slices.
 
 KV payloads keep the reference layout: (L, B, keep, KV, hd). The packed
 forwards return per-segment logits and the fresh KV gathered at
@@ -22,18 +26,23 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, check_ported
 from repro_torch.core.hybrid_prefill import (chunked_map, last_token_logits,
                                              packed_last_logits)
 from repro_torch.models import layers as L
 from repro_torch.runtime.device import DeviceLike, resolve_device
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.local_global or cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs dense, non-local_global configs; "
-            f"other families come with later slices")
+def _inputs(params: Dict, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+            embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """The first residual stream (B, S, D): the embedding of ``tokens``,
+    or ``embeds`` (the vlm stub's precomputed patch embeddings) cast to the
+    model dtype. Always a tensor of the forward's own: the forward adds to
+    it in place, and must not write into the caller's ``embeds``."""
+    dtype = L.torch_dtype(cfg.dtype)
+    if embeds is None:
+        return L.embed_apply(params["embed"], tokens, dtype)
+    return embeds.to(dtype=dtype, copy=True)
 
 
 def head_weight(params: Dict, cfg: ModelConfig) -> torch.Tensor:
@@ -77,12 +86,14 @@ def _kv_out(cfg: ModelConfig, B: int, keep: int, dtype, device) -> Dict:
 
 
 def forward_full(params: Dict, cfg: ModelConfig, *,
-                 tokens: torch.Tensor, kv_keep: int = 0,
+                 tokens: Optional[torch.Tensor] = None,
+                 embeds: Optional[torch.Tensor] = None, kv_keep: int = 0,
                  positions: Optional[torch.Tensor] = None,
                  seg_ids: Optional[torch.Tensor] = None,
                  kv_indices: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (final-normed hidden (B, S, D), kv dict or None).
+    """Returns (final-normed hidden (B, S, D), kv dict or None). The input
+    is ``tokens`` (B, S) or, in their place, ``embeds`` (B, S, D).
 
     ``kv_keep`` is the PrefillOnly prefix budget: only the first ``kv_keep``
     tokens' KV leave each layer (suffix KV discard — layer-wise: each
@@ -97,9 +108,9 @@ def forward_full(params: Dict, cfg: ModelConfig, *,
     the gather of those token positions, so per-segment keep windows
     scattered through the packed sequence cost K tokens, not S.
     """
-    _check_dense(cfg)
+    check_ported(cfg)
     dtype = L.torch_dtype(cfg.dtype)
-    x = L.embed_apply(params["embed"], tokens, dtype)
+    x = _inputs(params, cfg, tokens, embeds)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
@@ -131,9 +142,9 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict, *,
             kv_keep: int = 0, last_index: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """PrefillOnly serving prefill: (last-token logits (B, V) f32, prefix
-    KV)."""
-    hidden, kv = forward_full(params, cfg, tokens=batch["tokens"],
-                              kv_keep=kv_keep)
+    KV) of ``batch["tokens"]`` or, in their place, ``batch["embeds"]``."""
+    hidden, kv = forward_full(params, cfg, tokens=batch.get("tokens"),
+                              embeds=batch.get("embeds"), kv_keep=kv_keep)
     logits = last_token_logits(hidden, head_weight(params, cfg),
                                last_index=last_index,
                                final_softcap=cfg.final_softcap)
@@ -171,15 +182,16 @@ def prefill_with_prefix(params: Dict, cfg: ModelConfig, batch: Dict,
                         last_index: Optional[torch.Tensor] = None):
     """Prefill of a SUFFIX given a cached prefix's KV (prefix-cache hit path).
 
-    tokens cover positions [prefix_len, prefix_len+S); every layer attends
-    over concat(prefix KV, fresh suffix KV) with causal attention offset by
-    ``prefix_len``. ``prefix_kv`` holds (L, B, prefix_len, KV, hd) tensors.
-    Returns last-token logits + the suffix KV to extend the cache with (up
-    to ``kv_keep`` total tokens — suffix discard).
+    tokens (or embeds) cover positions [prefix_len, prefix_len+S); every
+    layer attends over concat(prefix KV, fresh suffix KV) with causal
+    attention offset by ``prefix_len``. ``prefix_kv`` holds (L, B,
+    prefix_len, KV, hd) tensors. Returns last-token logits + the suffix KV
+    to extend the cache with (up to ``kv_keep`` total tokens — suffix
+    discard).
     """
-    _check_dense(cfg)
+    check_ported(cfg)
     dtype = L.torch_dtype(cfg.dtype)
-    x = L.embed_apply(params["embed"], batch["tokens"], dtype)
+    x = _inputs(params, cfg, batch.get("tokens"), batch.get("embeds"))
     B, S, _ = x.shape
     positions = (prefix_len + torch.arange(S, dtype=torch.int32,
                                            device=x.device)).expand(B, S)
@@ -305,7 +317,7 @@ def prefill_packed_with_prefix(params: Dict, cfg: ModelConfig,
     Returns (per-segment last-token logits (N, V) f32, fresh KV gathered at
     ``kv_indices`` (L, 1, K, KV, hd), or None without ``kv_indices``).
     """
-    _check_dense(cfg)
+    check_ported(cfg)
     dtype = L.torch_dtype(cfg.dtype)
     x = L.embed_apply(params["embed"], tokens, dtype)
     B, S, _ = x.shape
@@ -355,7 +367,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     a sliding-window config, whose cache is a ring buffer bounded by the
     window. The local_global (gemma2) ring/global pair comes with that
     family's slice."""
-    _check_dense(cfg)
+    check_ported(cfg)
     dev = resolve_device(device)
     s = min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
     shape = (cfg.num_layers, batch, s, cfg.num_kv_heads, cfg.head_dim)
@@ -385,7 +397,7 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     cache): ``cache`` is the same dict, its tensors updated in place with
     the token's k/v at slot ``position[0]`` (mod the window for a ring) in
     every layer."""
-    _check_dense(cfg)
+    check_ported(cfg)
     dtype = L.torch_dtype(cfg.dtype)
     x = L.embed_apply(params["embed"], tokens[:, None], dtype)
     ring = bool(cfg.sliding_window)

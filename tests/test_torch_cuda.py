@@ -609,6 +609,74 @@ def test_decode_attention_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     assert da.launches == n0
 
 
+# ---- the dense, vlm and audio families' shapes ----------------------------
+# llama3.1-8b's MLP (D 4096, F 14,336), internvl2-2b's and musicgen-large's
+# (D 2048, F 8,192) at a decode step's, a solo hit's and a packed hit's T;
+# attention and flash decoding at internvl2's G 2 at head_dim 128 (16/8
+# heads) and musicgen's 32 MHA heads at head_dim 64 (G 1)
+FAMILY_HEADS = [(16, 8, 128), (32, 32, 64)]
+
+
+@pytest.mark.parametrize("T,D,F", [
+    (8, 4096, 14336), (128, 4096, 14336), (512, 4096, 14336),
+    (8, 2048, 8192), (128, 2048, 8192), (512, 2048, 8192)])
+def test_fused_mlp_bf16_kernel_at_the_families_widths(dev, T, D, F):
+    dtype = torch.bfloat16
+    x = _randn(dev, T, D, dtype=dtype)
+    ws = (_randn(dev, D, F, std=D ** -0.5, dtype=dtype, seed=1),
+          _randn(dev, D, F, std=D ** -0.5, dtype=dtype, seed=2),
+          _randn(dev, F, D, std=F ** -0.5, dtype=dtype, seed=3))
+    n0 = fm.launches
+    got = fm.fused_mlp(x, *ws)
+    assert fm.launches == n0 + 1
+    _close(got, fm.fused_mlp_plain(x, *ws), dtype, MLP_TOL)
+
+
+@pytest.mark.parametrize("H,KV,d", FAMILY_HEADS)
+@pytest.mark.parametrize("Sq,Sk,kw", [
+    (130, 130, dict()),                        # causal, ragged
+    (64, 1088, dict(q_offset=1024)),           # a solo hit
+])
+def test_flash_attention_kernel_at_the_families_heads(dev, H, KV, d, Sq, Sk,
+                                                      kw):
+    dtype = torch.bfloat16
+    q = _randn(dev, 1, Sq, H, d, dtype=dtype)
+    k = _randn(dev, 1, Sk, KV, d, dtype=dtype, seed=1)
+    v = _randn(dev, 1, Sk, KV, d, dtype=dtype, seed=2)
+    n0 = fa.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.launches == n0 + 1
+    _close(got, fa.flash_attention_plain(q, k, v, **kw), dtype, ATTN_TOL)
+
+
+@pytest.mark.parametrize("H,KV,d", FAMILY_HEADS)
+def test_packed_modes_at_the_families_heads(dev, H, KV, d):
+    """The segmented mode (a packed miss with a padding tail) and the
+    positioned mode (chip_smoke.py's packed hit), each with its
+    executed-tile map against the plain rule."""
+    _check_segmented(dev, (300, 64, 400, 17, 120), 1000, H, KV, d, {},
+                     torch.bfloat16)
+    _check_positioned(dev, (512, 384, 256, 512), (128, 96, 160, 128), 512,
+                      512, H, KV, d, {}, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,KV,d", FAMILY_HEADS)
+def test_decode_attention_at_the_families_heads(dev, H, KV, d, dtype):
+    """B 8 rows of an S 8,192 cache, ragged, on the kernel ``kernel_rule``
+    picks (the tensor-core kernel at G 2 in bf16, the GEMV kernel at G 1
+    and in f32)."""
+    S = 8192
+    kv_len = [1, 65, 4000, S, 2049, 8191, 333, S]
+    q, k, v, n = _decode_inputs(dev, 8, S, H, KV, d, kv_len, dtype)
+    assert _plan(dev, q, k).kernel == da.kernel_rule(H // KV, dtype)
+    n0 = da.launches
+    got = da.decode_attention(q, k, v, n)
+    torch.cuda.synchronize()
+    assert da.launches == n0 + 1
+    _close(got, da.decode_attention_plain(q, k, v, n), dtype, DEC_TOL)
+
+
 @pytest.mark.parametrize("window", [0, 8])
 def test_decode_chain_on_the_card_matches_the_cpu(dev, window,
                                                  arch="qwen1.5-0.5b",

@@ -5,9 +5,11 @@ mode, through ``repro.kernels.ops.decode_attention``) and to
 ``ref.decode_attention_ref`` at the shapes of ``tests/test_kernels.py``,
 with the dead cache slots filled with large finite values so that a mask
 fault shows. The decode layers, ``init_cache`` and ``decode_step`` are held
-to ``repro.models``' at the reduced qwen1.5-0.5b and granite-3-8b
-configs (the ``arch`` fixture's params; granite has 4 query heads per kv
-head and no qkv bias), on the same parameters (the reference tree with its
+to ``repro.models``' at the reduced qwen1.5-0.5b, granite-3-8b,
+llama3.1-8b, internvl2-2b and musicgen-large configs (the ``arch``
+fixture's params; granite and llama have 4 query heads per kv head,
+internvl2 2, musicgen none shared, and no qkv bias; the last three an
+untied LM head), on the same parameters (the reference tree with its
 zero leaves made random, carried over by ``params_from_numpy``): float32 within 1e-4 (summation order over
 four layers), bfloat16 within 2e-2 (rounding: the port keeps p in f32 in
 P.V and the MLP's ``silu(g) * u`` in f32, ROADMAP §C2 and §C6). Inputs are
@@ -40,6 +42,11 @@ from repro_torch.models.params import param_defs, params_from_numpy
 
 F32 = dict(atol=1e-4, rtol=1e-4)
 BF16 = dict(atol=2e-2, rtol=2e-2)
+# bf16 logits differ by rounding in proportion to their scale: BF16 holds
+# for logits of std up to BF16_REF_STD (the tied heads' of qwen and granite,
+# 0.22-0.23 here) and scales with a wider std, as chip_smoke.py's
+# logits_limits scale its limits (the untied heads give std ~1.0)
+BF16_REF_STD = 0.25
 DEAD = 1e3                       # dead cache slots: large and finite
 STEPS = 20
 
@@ -144,7 +151,8 @@ def test_split_rule_covers_the_cache(rows, S, per_sm):
 
 # ---- decode layers -------------------------------------------------------------
 QWEN = "qwen1.5-0.5b"
-ARCHS = (QWEN, "granite-3-8b")
+ARCHS = (QWEN, "granite-3-8b", "llama3.1-8b", "internvl2-2b",
+         "musicgen-large")
 
 
 def _configs(arch: str, window: int = 0, dtype: str = "float32"):
@@ -329,8 +337,10 @@ def test_decode_chain_matches_reference(tree, arch, window):
 @pytest.mark.parametrize("window", [0, 8])
 def test_decode_chain_bf16_matches_reference(tree, arch, window):
     _, _, _, jlogs, tlogs, _, _ = _chains(tree, arch, window, "bfloat16")
+    scale = max(1.0, float(np.std(jlogs[0])) / BF16_REF_STD)
     for t, (got, want) in enumerate(zip(tlogs, jlogs)):
-        np.testing.assert_allclose(got, want, err_msg=f"step {t}", **BF16)
+        np.testing.assert_allclose(got, want, err_msg=f"step {t}",
+                                   **{k: v * scale for k, v in BF16.items()})
 
 
 @pytest.mark.parametrize("window", [0, 8])
@@ -371,7 +381,7 @@ def test_build_fields_and_refusals():
     assert api.cfg is tcfg and api.defs() == param_defs(tcfg)
     for name in ("prefill", "decode_step", "init_cache"):
         assert callable(getattr(api, name))
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="A8"):
         api.train_loss({}, {})
     for over in (dict(family="moe"), dict(local_global=True),
                  dict(family="hybrid")):

@@ -1,9 +1,11 @@
 """The port's engine (solo path: cache miss and prefix-cache hit) against the
 JAX package's, plus the port's package rules.
 
-The engines run the reduced qwen1.5-0.5b and granite-3-8b configs (the
-``setup`` fixture's params; granite has 4 query heads per kv head and no
-qkv bias) in bfloat16 on bridged weights; scores are held to the repo's
+The engines run the reduced qwen1.5-0.5b, granite-3-8b, llama3.1-8b,
+internvl2-2b (vlm) and musicgen-large (audio) configs (the ``setup``
+fixture's params; granite and llama have 4 query heads per kv head,
+internvl2 2, musicgen none shared, and no qkv bias; the last three an
+untied LM head) in bfloat16 on bridged weights; scores are held to the repo's
 2e-2 engine gate (the same gate ``tests/test_engine.py`` holds hit scores
 to against a cold engine).
 """
@@ -38,7 +40,8 @@ from repro_torch.runtime.device import resolve_device
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SCORE_GATE = 2e-2
 YES, NO = 5, 9
-ARCHS = ("qwen1.5-0.5b", "granite-3-8b")
+ARCHS = ("qwen1.5-0.5b", "granite-3-8b", "llama3.1-8b", "internvl2-2b",
+         "musicgen-large")
 
 
 @pytest.fixture(scope="module", params=ARCHS)

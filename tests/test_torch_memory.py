@@ -5,7 +5,8 @@ behaviours (``tests/test_jct_and_policy.py``) on the H100.
 
 Configs are bridged field for field: the port's ``ModelConfig`` built from
 the reference's fields, for every dense config of the reference registry
-(llama3.1-8b included). Chips the same way: a port ``ChipSpec`` equal to the
+(llama3.1-8b included), and for the vlm and audio configs, which take the
+dense formulas. Chips the same way: a port ``ChipSpec`` equal to the
 TPU v5e field for field, and a reference ``ChipSpec`` carrying the H100's
 constants, so both packages price both chips. Real numbers agree within
 rel 1e-12 (the copy runs the same float operations), integers exactly.
@@ -29,7 +30,12 @@ from repro_torch.runtime.hw import H100_SXM, ChipSpec
 
 REL = 1e-12
 DENSE = sorted(a for a, c in REGISTRY.items() if c.family == "dense")
-OTHER = sorted(a for a, c in REGISTRY.items() if c.family != "dense")
+# the vlm and audio families run the dense formulas (internvl2-2b,
+# musicgen-large); MoE, SSM and hybrid configs raise
+VLM_AUDIO = sorted(a for a, c in REGISTRY.items()
+                   if c.family in ("vlm", "audio"))
+OTHER = sorted(a for a, c in REGISTRY.items()
+               if c.family not in ("dense", "vlm", "audio"))
 TECHNIQUES = ("paged", "chunked", "discard", "hybrid", "tp", "pp")
 LENGTHS = (0, 1, 1000, 16_384, 19_000, 60_000, 524_288)
 
@@ -123,8 +129,35 @@ def test_other_families_raise(arch):
         MemoryModel(cfg, H100_SXM).peak_bytes(1000, "hybrid")
 
 
+@pytest.mark.parametrize("arch", VLM_AUDIO)
+def test_vlm_and_audio_memory_match_reference(arch):
+    """The vlm and audio configs price as the reference prices them: the
+    config quantities, every technique's peak, the MIL table and the
+    prefix budgets, on both chips."""
+    ref = REGISTRY[arch]
+    cfg = port_config(ref)
+    assert cfg == get_config(arch)
+    assert cfg.param_count() == ref.param_count()
+    assert cfg.active_param_count() == ref.active_param_count()
+    assert cfg.kv_bytes_per_token() == ref.kv_bytes_per_token()
+    for kw in (dict(), dict(weight_bytes_per_param=1.0)):
+        for rmm, pmm in models(arch, **kw):
+            for t in TECHNIQUES:
+                for S in LENGTHS:
+                    for keep in (None, 16_384):
+                        close(pmm.peak_bytes(S, t, 2048, 2, kv_keep=keep),
+                              rmm.peak_bytes(S, t, 2048, 2, kv_keep=keep))
+            for chunk, k in ((2048, 2), (512, 4)):
+                assert pmm.mil_table(chunk, k) == rmm.mil_table(chunk, k)
+            for mil in (0, 19_000, 60_000, 10**6):
+                for keep in (None, 0, 16_384):
+                    assert (pmm.prefix_budget_tokens(mil, 2048, keep)
+                            == rmm.prefix_budget_tokens(mil, 2048, keep))
+
+
 def test_the_port_registry_is_bridged():
-    for arch in ("qwen1.5-0.5b", "granite-3-8b"):
+    for arch in ("qwen1.5-0.5b", "granite-3-8b", "llama3.1-8b",
+                 "internvl2-2b", "musicgen-large"):
         assert port_config(REGISTRY[arch]) == get_config(arch)
 
 

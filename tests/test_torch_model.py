@@ -6,8 +6,10 @@ biases overwritten by seeded random values (so the ``(1 + w)`` scale and the
 qkv bias are exercised), carried to the port by ``params_from_numpy``.
 Forwards are compared in float32 at the reduced qwen1.5-0.5b config, at
 the reduced granite-3-8b config (grouped-query attention: 4 query heads per
-kv head, no qkv bias) and at granite reduced to head_dim 128 (d_model 256,
-8/2 heads): logits and kept KV within 1e-4 (different summation orders over
+kv head, no qkv bias), at granite reduced to head_dim 128 (d_model 256,
+8/2 heads), at the reduced llama3.1-8b config (4 query heads per kv
+head, an untied LM head) and at the reduced internvl2-2b (vlm: 2 query
+heads per kv head) and musicgen-large (audio: MHA) configs: logits and kept KV within 1e-4 (different summation orders over
 a 4-layer model with O(1) activations).
 """
 import dataclasses
@@ -33,7 +35,8 @@ from repro_torch.models import transformer as ttfm
 from repro_torch.models.params import init_params, params_from_numpy
 
 TOL = dict(atol=1e-4, rtol=1e-4)
-ARCHS = ("qwen1.5-0.5b", "granite-3-8b")
+ARCHS = ("qwen1.5-0.5b", "granite-3-8b", "llama3.1-8b", "internvl2-2b",
+         "musicgen-large")
 # granite's head_dim, 4 query heads per kv head, at a CPU-test width
 HD128 = dict(d_model=256, num_heads=8, num_kv_heads=2, head_dim=128)
 
@@ -69,8 +72,11 @@ def _np(x) -> np.ndarray:
 
 @pytest.fixture(scope="module", params=[
     (0, "qwen1.5-0.5b", {}), (16, "qwen1.5-0.5b", {}),
-    (16, "granite-3-8b", {}), (0, "granite-3-8b", HD128)],
-    ids=["chunk0", "chunk16", "granite-chunk16", "granite-hd128-chunk0"])
+    (16, "granite-3-8b", {}), (0, "granite-3-8b", HD128),
+    (16, "llama3.1-8b", {}), (16, "internvl2-2b", {}),
+    (16, "musicgen-large", {})],
+    ids=["chunk0", "chunk16", "granite-chunk16", "granite-hd128-chunk0",
+         "llama-chunk16", "internvl2-chunk16", "musicgen-chunk16"])
 def model(request):
     chunk, arch, widths = request.param
     jcfg, tcfg = _configs(chunk, arch, **widths)

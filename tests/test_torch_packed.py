@@ -7,12 +7,13 @@ package, on the CPU.
   oracles, and the port's tile-liveness rule against the Pallas
   ``debug_tile_map`` at the same block sizes.
 - Model layer: ``prefill_packed`` and ``prefill_packed_with_prefix`` against
-  the JAX functions in float32 at the reduced qwen1.5-0.5b and
-  granite-3-8b configs (the ``model`` fixture's params; granite has 4
-  query heads per kv head).
+  the JAX functions in float32 at the reduced qwen1.5-0.5b, granite-3-8b,
+  llama3.1-8b, internvl2-2b and musicgen-large configs (the ``model``
+  fixture's params; granite and llama have 4 query heads per kv head,
+  internvl2 2, musicgen none shared; the last three an untied LM head).
 - Engine layer: the port's packed engine against ``repro.core.engine`` on
   one mixed hit/miss trace (no ``profile()``, so pack formation is
-  deterministic) and against the port's solo engine, at both reduced
+  deterministic) and against the port's solo engine, at the five reduced
   configs (the ``engines`` fixture's params); the copied batch-formation
   arithmetic against the reference's.
 
@@ -65,7 +66,8 @@ BF16_TOL = dict(atol=5e-2, rtol=5e-2)
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 SCORE_GATE = 2e-2
-ARCHS = ("qwen1.5-0.5b", "granite-3-8b")
+ARCHS = ("qwen1.5-0.5b", "granite-3-8b", "llama3.1-8b", "internvl2-2b",
+         "musicgen-large")
 YES, NO = 5, 9
 
 
