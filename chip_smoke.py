@@ -31,7 +31,34 @@ at the model's own widths and shapes, and prints each phase's seconds:
 - musicgen-large (audio: 48 layers, d_model 2048, 32 MHA heads of 64,
   a 2,048-code vocabulary): phase 2's attention and decode rows at 32
   heads, G 1 (its RMSNorm and MLP rows are internvl2's), phases 3-5 and
-  phase 7's decode chain; its engines score two ids of its vocabulary.
+  phase 7's decode chain; its engines score two ids of its vocabulary;
+- mixtral-8x22b (moe: every published width, 8 of 56 layers; 8 experts
+  of d_ff 16,384, top-2, a 4096-token window, 48/8 heads of 128, G 6):
+  phase 2's rows at D 6144 and G 6 with the window's shapes (causal S 8192
+  at window 4096 with its executed-tile map, a packed miss with a segment
+  past the window, a packed hit over a 4608-token prefix, flash decoding
+  over a 4096-slot ring), phases 3-5, phase 7's chain through a ring
+  cache, and phase 8's peak ladder; no dense MLP, so the fused MLP is off
+  its path;
+- llama4-scout-17b-a16e (moe: every published width, 8 of 48 layers; 16
+  experts of d_ff 8,192, top-1, a shared expert, 40/8 heads, G 5): phase
+  2's rows at D 5120 and G 5 (the shared expert's MLP at F 8,192), phases
+  3-5 and phase 7's chain.
+
+At the MoE models random init overfills the experts, so a bf16 rounding
+flip of the router would move other tokens' slots and drops and cascade
+through later layers. So the plain path dispatches the kernel path's
+routes (``taped_routes``: experts, slots and gate weights) and every row
+is held to the limits, while the plain router's own flips are counted and
+held to MOE_FLIP_SHARE; each layer's block is held on the same input and
+routes (``forced_layers``, with the reading on the plain router's own gate
+weights printed beside it); every engine step is run again eagerly
+through the kernels (held to the graph's scores) and the plain versions
+on its routes (``moe_step_twins``); the decode chain runs with room in
+every expert (``uncapped``) and each step on its prefill's routes; each
+dispatch's drops are printed; the hit-vs-cold and packed-vs-solo gaps
+are printed with each step's drops, not gated (ROADMAP C17); a miss's
+device time is split by MoE stage (``trace_moe_miss``).
 
 It raises on the first failure:
 
@@ -275,6 +302,12 @@ EAGER_WARM_MS = {("solo", 2048, 0): 40.779, ("solo", 128, 1024): 39.320,
 # about one forward's temporaries, not one set of temporaries per graph
 # (allocator segments round each capture up, by at most this much)
 POOL_SLACK = 32 << 20
+# an MoE engine's graphs but the largest grow the pool by this much more
+# each: their dispatch buffers are sized by their capacity C, so not every
+# block of another graph serves them (mixtral's engines, NVIDIA H100 80GB
+# HBM3 at 700 W: 82,942,920 bytes over the dense rule across 6 such graphs
+# and 93,763,552 across 5, 13.8-18.8 MB a graph; PERF.md)
+MOE_POOL_SLACK = 32 << 20
 # the graph memory phase: a solo engine whose compiled forwards may hold
 # GRAPH_BUDGET bytes serves hits at MEMORY_PLENS prefix lengths of one
 # user's profile (a new graph each), then the first few again
@@ -387,9 +420,15 @@ class Spec(typing.NamedTuple):
     run's, the peak-memory ladder's S of phase 8 (its last also the long
     attention, MLP and RMSNorm rows' S and T), the base dense attention
     cases phase 2 runs, the answer token ids its engines score (inside
-    the vocabulary). A kernel whose row phase (ROW_PHASE) the model does
-    not run takes its row from an earlier model at the same shape
-    (row_models)."""
+    the vocabulary), the layers drawn (0: the published depth), extra
+    packed attention cases (label, suffix lengths, S, prefix lengths or
+    None, pmax, window), whether phase 8 runs its 60,000-token
+    requests, roofline fit and traces after the peak ladder, and the
+    decode chain's batch and prefix length. A kernel
+    whose row phase (ROW_PHASE) the model does not run takes its row from
+    an earlier model at the same shape (row_models); a kernel its path
+    does not run (the MLP of an MoE model without a shared expert) has
+    none."""
     arch: str
     plens: tuple
     slens: tuple
@@ -408,6 +447,10 @@ class Spec(typing.NamedTuple):
     long_lens: tuple
     attn_cases: tuple = ("causal", "causal_2048", "q_offset")
     answer: tuple = (YES, NO)
+    depth: int = 0
+    extra_packed: tuple = ()
+    long_request: bool = True
+    dec_cons: tuple = (DEC_CONS_B, DEC_PREFIX)
 
 
 # qwen1.5-0.5b, the earlier slices' model. Its extra cases cover the
@@ -500,7 +543,59 @@ MUSICGEN = Spec("musicgen-large", plens=(512, 384, 256, 512),
                         "solo", "packed", "decode"),
                 eager_ms={}, long_lens=(),
                 attn_cases=("causal", "q_offset"), answer=(1262, 705))
-SPECS = (QWEN, GRANITE, LLAMA, INTERNVL2, MUSICGEN)
+# mixtral-8x22b (moe) at every published width and 8 of its 56 layers
+# (40.9 GB of weights; every layer alike: MoE, a 4096-token sliding
+# window): d_model 6144, 48/8 heads of 128 (G 6), 8 experts of d_ff 16,384,
+# top-2, vocab 32,768, an untied head. Its blocks have no dense MLP, so the
+# fused MLP is off its path. Phase 2 adds the window's shapes: causal S
+# 8192 at window 4096 (half the key tiles skipped), a packed miss with a
+# segment past the window and a packed hit over a 4608-token prefix, and
+# flash decoding over a 4096-slot ring; its decode chain runs one row
+# after a 4608-token prefix, so the cache is a ring of 4096 slots that the
+# prefix overfills; phase 8 runs the peak ladder.
+MIXTRAL = Spec("mixtral-8x22b", plens=(512, 384, 256, 512),
+               slens=(128, 96, 160, 128), pmax=512, hit_s=512, hit_nb=2,
+               hit_pmax=0, dec_b=8, mlp_ts=(), norm_t=2048,
+               norm_ts=(8, 128, 512, 2048),
+               extra_attn=(("window_8192", 1, 8192, 8192, 48, 8, 128,
+                            dict(window=4096)),),
+               extra_dec=(("ring_4096", 8, 4096, 48, 8, 128, [4096] * 8,
+                           0.0),),
+               phases=("norm_rows", "attn_rows", "packed_rows",
+                       "decode_rows", "forwards", "solo", "packed", "decode",
+                       "long"),
+               eager_ms={}, long_lens=(8192, 16384, 32768), depth=8,
+               extra_packed=(
+                   ("segmented", (5000, 2500, 600), 8192, None, 0, 4096),
+                   ("positioned", (256, 128, 64), 512, (4608, 512, 0), 4608,
+                    4096)),
+               long_request=False, dec_cons=(1, 4608))
+# llama4-scout-17b-a16e (moe) at every published width and 8 of its 48
+# layers (39.4 GB of weights): d_model 5120, 40/8 heads of 128 (G 5), 16
+# experts of d_ff 8,192, top-1, and an always-on shared expert (the fused
+# MLP at D 5120, F 8192), vocab 202,048, full attention.
+SCOUT = Spec("llama4-scout-17b-a16e", plens=(512, 384, 256, 512),
+             slens=(128, 96, 160, 128), pmax=512, hit_s=512, hit_nb=2,
+             hit_pmax=0, dec_b=8, mlp_ts=(512, 2048), norm_t=2048,
+             norm_ts=(8, 128, 512, 2048), extra_attn=(), extra_dec=(),
+             phases=ROW_PHASES + ("forwards", "solo", "packed", "decode"),
+             eager_ms={}, long_lens=(), depth=8)
+SPECS = (QWEN, GRANITE, LLAMA, INTERNVL2, MUSICGEN, MIXTRAL, SCOUT)
+# the MoE models: the plain path dispatches the kernel path's routes
+# (``taped_routes``), so that a bf16 rounding flip of its router, which at
+# random init (the experts overflow: up to 40% of mixtral's assignments
+# drop at S 512) would move other tokens' slots and cascade through the
+# later layers, moves nothing, and every row is held to the limits. The
+# plain router's own decisions are counted: the flipped (token, layer)
+# decisions may be at most this share of all (NVIDIA H100 80GB HBM3 at 700
+# W: 0.17-0.52% layer by layer, 1.1-1.8% end to end on the taped routes,
+# PERF.md; a wrong kernel moves most routes of the layer after it)
+MOE_FLIP_SHARE = 0.05
+# an MoE block through the kernels against its plain version on the same
+# input and routes (``forced_layers``): each real token's |kernel - plain|
+# over |plain| (norms of its D-vector); read 0.0075-0.0080 on the same
+# card, 0.0138 on the plain router's own gate weights (PERF.md)
+MOE_BLOCK_REL = 0.02
 
 # JSON entries: (name, launch counter, TPU kernel it replaces); the entry
 # "flash_attention" is the attention kernel's dense mode
@@ -590,6 +685,7 @@ def main() -> int:
     lines = []
     for name, counter, replaces in KERNELS:
         # a model whose shapes another model's row measures names it
+        # (a kernel off a model's path has neither: "row_at" None)
         by_model = {arch: (dict(results[arch][name],
                                 launches=launches[arch][counter])
                            if name in results[arch] else
@@ -620,7 +716,8 @@ def main() -> int:
 def row_models() -> dict:
     """For each model, each kernel whose row phase it does not run, mapped
     to the first model before it in SPECS whose phases measure that row at
-    the same ROW_FIELDS of its config; fails where there is none."""
+    the same ROW_FIELDS of its config (None for a kernel off the model's
+    path); fails where there is none."""
     from repro_torch.configs import get_config
 
     def key(arch, name):
@@ -630,8 +727,12 @@ def row_models() -> dict:
     out = {}
     for i, spec in enumerate(SPECS):
         out[spec.arch] = {}
+        on_path = path_kernels(get_config(spec.arch))
         for name, phase in ROW_PHASE.items():
             if phase in spec.phases:
+                continue
+            if name.split("[")[0] not in on_path:
+                out[spec.arch][name] = None
                 continue
             at = [o.arch for o in SPECS[:i] if phase in o.phases
                   and key(o.arch, name) == key(spec.arch, name)]
@@ -684,7 +785,7 @@ def run_model(torch, dev, spec: Spec):
     if set(results) != want:
         fail(f"{spec.arch}: phase 2 measured the rows {sorted(results)}, "
              f"its phases name {sorted(want)}")
-    cfg, params = draw_model(torch, dev, spec.arch)
+    cfg, params = draw_model(torch, dev, spec)
     if not all(0 <= t < cfg.vocab_size for t in spec.answer):
         fail(f"{cfg.name}: answer ids {spec.answer} outside the "
              f"{cfg.vocab_size}-token vocabulary")
@@ -717,28 +818,39 @@ def run_model(torch, dev, spec: Spec):
           f"{launches}; phases took "
           f"{time.perf_counter() - t0:.1f} s; seconds by phase {took}",
           flush=True)
-    idle = [k for k in kernel_modules() if not launches.get(k)]
+    idle = [k for k in path_kernels(cfg) if not launches.get(k)]
     if idle:
         fail(f"{spec.arch}: the main path launched no {idle}")
     return results, launches
 
 
-def draw_model(torch, dev, arch: str):
-    """The config of ``arch`` and its random weights in the config's dtype,
-    drawn on the card from SEED; prints their size, the time to draw them
-    and the peak of device memory meanwhile."""
+def draw_model(torch, dev, spec: Spec):
+    """The config of ``spec.arch``, cut to ``spec.depth`` layers where the
+    Spec sets one (every width kept), and its random weights in the
+    config's dtype, drawn on the card from SEED; prints their size, the
+    time to draw them and the peak of device memory meanwhile."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.models.params import init_params
-    cfg = get_config(arch)
+    cfg = get_config(spec.arch)
+    published = cfg.num_layers
+    if spec.depth:
+        cfg = dataclasses.replace(cfg, num_layers=spec.depth)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                          device=dev)
     torch.cuda.synchronize()
     leaves = list(_leaves(params))
-    print(f"model: {cfg.name} L={cfg.num_layers} d_model={cfg.d_model} "
+    depth = ("" if cfg.num_layers == published else
+             f" (cut from the published {published} layers)")
+    moe = (f" experts={cfg.num_experts} top-{cfg.num_experts_per_tok} "
+           f"shared_expert={cfg.shared_expert} window={cfg.sliding_window}"
+           if cfg.is_moe else "")
+    print(f"model: {cfg.name} L={cfg.num_layers}{depth} d_model={cfg.d_model} "
           f"heads={cfg.num_heads}/{cfg.num_kv_heads} head_dim="
-          f"{cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+          f"{cfg.head_dim} d_ff={cfg.d_ff}{moe} vocab={cfg.vocab_size} "
           f"params={sum(a.numel() for a in leaves)} {cfg.dtype}; weights "
           f"{sum(a.numel() * a.element_size() for a in leaves)} bytes drawn "
           f"in {time.perf_counter() - t0:.2f} s, peak allocated "
@@ -873,13 +985,14 @@ def check_kernels(torch, dev, spec: Spec):
             out["rmsnorm"] = row
 
     # attention cases: (label, B, Sq, Sk, H, KV, d, kwargs) at the model's
-    # heads; the first is the JSON row, causal_2048 the solo miss's shape,
-    # q_offset the solo hit's
+    # heads and window; the first is the JSON row, causal_2048 the solo
+    # miss's shape, q_offset the solo hit's
     H, KV, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    win = dict(window=cfg.sliding_window) if cfg.sliding_window else {}
     cases = [c for c in (
-        ("causal", 1, 512, 512, H, KV, d, dict()),
-        ("causal_2048", 1, 2048, 2048, H, KV, d, dict()),
-        ("q_offset", 1, 128, 1152, H, KV, d, dict(q_offset=1024)),
+        ("causal", 1, 512, 512, H, KV, d, dict(win)),
+        ("causal_2048", 1, 2048, 2048, H, KV, d, dict(win)),
+        ("q_offset", 1, 128, 1152, H, KV, d, dict(q_offset=1024, **win)),
     ) if c[0] in spec.attn_cases]
     cases += spec.extra_attn
     if "attn_rows" not in spec.phases:
@@ -902,6 +1015,8 @@ def check_kernels(torch, dev, spec: Spec):
             want = fa.flash_attention_plain(q, k, v, **kw)
             errs[dtype] = compare(torch, got, want, tol,
                                   f"flash_attention {label} {dtype}")
+            if label.startswith("window"):
+                dense_tiles(torch, fa, q, k, v, label, kw)
         live = fa._live_mask(Sq, Sk, causal=kw.get("causal", True),
                              window=kw.get("window", 0),
                              q_offset=kw.get("q_offset", 0),
@@ -961,6 +1076,28 @@ def check_kernels(torch, dev, spec: Spec):
         if T == spec.mlp_ts[0]:
             out["fused_mlp"] = row
     return out
+
+
+def dense_tiles(torch, fa, q, k, v, label: str, kw) -> None:
+    """The dense mode's executed-tile map at a window against the plain
+    tile rule at the kernel's tile size: the tiles a window skips must not
+    run; fails unless the maps are equal."""
+    B, Sq, Sk = q.shape[0], q.shape[1], k.shape[1]
+    bq, bk = fa.tile_shape(q.dtype)
+    tmap = torch.empty((B, -(-Sq // bq), -(-Sk // bk)), dtype=torch.int32,
+                       device=q.device)
+    fa.flash_attention(q, k, v, tile_map=tmap, **kw)
+    want = tile_rule(Sq, Sk, window=kw.get("window", 0), block_q=bq,
+                     block_k=bk).to(q.device)
+    causal = tile_rule(Sq, Sk, block_q=bq, block_k=bk)
+    ran, total = int(tmap.sum()), tmap.numel()
+    print(f"tiles dense {label} {q.dtype}: kernel ran {ran} of {total} "
+          f"{bq}x{bk} tiles, plain tile rule {int(want.sum())} (causal-only "
+          f"rule {int(causal.sum())}); maps equal: "
+          f"{bool(torch.equal(tmap, want))}", flush=True)
+    if not torch.equal(tmap, want):
+        fail(f"flash_attention {label} {q.dtype}: executed-tile map differs "
+             f"from the plain tile rule")
 
 
 def check_mlp(torch, dev, cfg, randn, T: int, dtypes, where: str = ""):
@@ -1166,16 +1303,29 @@ def check_packed_kernels(torch, dev, spec: Spec):
     dtypes = [(torch.bfloat16, ATTN_BF16_TOL)]
     if builds(fa.width_rule, cfg.head_dim, torch.float32):
         dtypes.insert(0, (torch.float32, F32_TOL))
-    return {
+    win = dict(window=cfg.sliding_window) if cfg.sliding_window else {}
+    out = {
         "flash_attention[segmented]": check_packed(
             torch, dev, cfg, gen, "segmented", SEG_S, SEG_S,
             packed_case(dev, SEG_LENS, SEG_S)[1],
-            segments_desc(SEG_LENS, SEG_S), dtypes),
+            segments_desc(SEG_LENS, SEG_S), dtypes, kw=win),
         "flash_attention[positioned]": check_packed(
             torch, dev, cfg, gen, "positioned", S, N * spec.pmax + S,
             packed_case(dev, spec.slens, S, spec.plens, spec.pmax)[1],
             f"Sq={S} Sk={N * spec.pmax + S} plens={spec.plens} "
-            f"suffixes={spec.slens} pmax={spec.pmax}", dtypes)}
+            f"suffixes={spec.slens} pmax={spec.pmax}", dtypes, kw=win)}
+    # windowed layouts: a segment past the window, a prefix the window cuts
+    for label, slens, Sq, plens, pmax, window in spec.extra_packed:
+        Sk = Sq if plens is None else len(plens) * pmax + Sq
+        desc = (segments_desc(slens, Sq) if plens is None else
+                f"Sq={Sq} Sk={Sk} plens={plens} suffixes={slens} "
+                f"pmax={pmax}")
+        check_packed(torch, dev, cfg, gen, label, Sq, Sk,
+                     packed_case(dev, slens, Sq, plens, pmax)[1],
+                     f"{desc} window={window}",
+                     [(torch.bfloat16, ATTN_BF16_TOL)],
+                     where=f" window {window}", kw=dict(window=window))
+    return out
 
 
 def segments_desc(lens, S: int) -> str:
@@ -1184,18 +1334,21 @@ def segments_desc(lens, S: int) -> str:
 
 
 def check_packed(torch, dev, cfg, gen, label: str, Sq: int, Sk: int, ids,
-                 desc: str, dtypes, where: str = ""):
+                 desc: str, dtypes, where: str = "", kw=None):
     """The attention in a packed mode (``label``) at the model's heads on
-    the layout ``ids`` against the plain version in each of ``dtypes``; the
-    kernel's executed-tile map against the plain tile rule at its own tile
-    size; the bf16 limit beside the one-tile-skip readings; times and the
-    live-layout bound. Returns the row (bf16)."""
+    the layout ``ids`` (and the options ``kw``: a window) against the plain
+    version in each of ``dtypes``; the kernel's executed-tile map against
+    the plain tile rule at its own tile size; the bf16 limit beside the
+    one-tile-skip readings; times and the live-layout bound. Returns the
+    row (bf16)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.runtime.hw import H100_SXM as chip
 
     H, KV, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     name = f"flash_attention[{label}]{where}"
+    kw = dict(kw or {})
+    window = kw.get("window", 0)
     errs = {}
     for dtype, tol in dtypes:
         q = (torch.randn((1, Sq, H, d), generator=gen, device=dev)).to(dtype)
@@ -1204,15 +1357,16 @@ def check_packed(torch, dev, cfg, gen, label: str, Sq: int, Sk: int, ids,
         bq, bk = fa.tile_shape(dtype)
         tmap = torch.empty((1, -(-Sq // bq), -(-Sk // bk)),
                            dtype=torch.int32, device=dev)
-        got = fa.flash_attention(q, k, v, tile_map=tmap, **ids)
-        want = fa.flash_attention_plain(q, k, v, **ids)
+        got = fa.flash_attention(q, k, v, tile_map=tmap, **ids, **kw)
+        want = fa.flash_attention_plain(q, k, v, **ids, **kw)
         errs[dtype] = compare(torch, got, want, tol, f"{name} {dtype}")
         pad = ids["seg_q"][0] < 0
         if pad.any() and got[0, pad].abs().max().item() != 0.0:
             fail(f"{name}: a padding row is not 0")
         # the executed tiles against the plain rule at the kernel's own
         # tile size (bf16: BLOCK_Q x BLOCK_K; f32: 32 x 32)
-        want_map = tile_rule(Sq, Sk, block_q=bq, block_k=bk, **ids)
+        want_map = tile_rule(Sq, Sk, block_q=bq, block_k=bk, window=window,
+                             **ids)
         causal_map = tile_rule(Sq, Sk, block_q=bq, block_k=bk)
         ran, total = int(tmap.sum()), tmap.numel()
         print(f"tiles {label}{where} {dtype}: kernel ran {ran} of {total} "
@@ -1222,7 +1376,7 @@ def check_packed(torch, dev, cfg, gen, label: str, Sq: int, Sk: int, ids,
         if not torch.equal(tmap, want_map):
             fail(f"{name} {dtype}: executed-tile map differs from the plain "
                  f"tile rule")
-    live = fa._live_mask(Sq, Sk, causal=True, window=0, q_offset=0,
+    live = fa._live_mask(Sq, Sk, causal=True, window=window, q_offset=0,
                          kv_valid=None, device=dev, **ids)
     report_limit(torch, name, got, want, ATTN_BF16_TOL,
                  attention_skips(torch, fa, q, k, v, live, want,
@@ -1242,9 +1396,9 @@ def check_packed(torch, dev, cfg, gen, label: str, Sq: int, Sk: int, ids,
 
     row = dict(
         max_abs_err=errs[torch.bfloat16], f32_err=errs.get(torch.float32),
-        ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, **ids)),
-        plain_ms=time_ms(torch,
-                         lambda: fa.flash_attention_plain(q, k, v, **ids)),
+        ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, **ids, **kw)),
+        plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, **ids, **kw)),
         library_ms=time_ms(torch, library),
         bound_ms=b_ms, bound_by=b_by,
         shape=f"{desc} H={H} KV={KV} d={d} bf16, live pairs/head "
@@ -1264,12 +1418,14 @@ def check_path_layouts(torch, dev, spec: Spec, cfg, layouts) -> None:
     def randn(*shape, std=1.0, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
+    win = dict(window=cfg.sliding_window) if cfg.sliding_window else {}
     for S, lens in sorted(layouts):
         check_packed(torch, dev, cfg, gen, "segmented", S, S,
                      packed_case(dev, lens, S)[1], segments_desc(lens, S),
                      [(torch.bfloat16, ATTN_BF16_TOL)],
-                     where=f" path layout {lens}")
-    for S in sorted({S for S, _ in layouts} - set(spec.mlp_ts)):
+                     where=f" path layout {lens}", kw=win)
+    for S in sorted({S for S, _ in layouts} - set(spec.mlp_ts)
+                    if mlp_layers(cfg) else ()):
         report(f"fused_mlp[T={S}] path layout",
                check_mlp(torch, dev, cfg, randn, S,
                          ((torch.bfloat16, MLP_BF16_TOL),),
@@ -1491,18 +1647,359 @@ def kernel_launches(launches):
     return {k: launches[k] for k in kernel_modules()}
 
 
+def mlp_layers(cfg) -> int:
+    """Layers that run the fused MLP (the port's rule)."""
+    from repro_torch.models import transformer as tfm
+    return tfm.mlp_layers(cfg)
+
+
+def path_kernels(cfg):
+    """The kernels of the model's main path (``kernel_modules`` names)."""
+    return [k for k in kernel_modules()
+            if k != "fused_mlp" or mlp_layers(cfg)]
+
+
 def per_forward(cfg, S: int = 0):
     """Launches of one forward over S tokens (0: at most one hybrid chunk):
-    the MLP runs once a chunk of ``cfg.hybrid_chunk`` tokens."""
+    the MLP (a dense block's, or the shared expert) runs once a chunk of
+    ``cfg.hybrid_chunk`` tokens."""
     chunks = -(-S // cfg.hybrid_chunk) if S and cfg.hybrid_chunk else 1
     return {"rmsnorm": 2 * cfg.num_layers + 1,
             "flash_attention": cfg.num_layers,
-            "fused_mlp": cfg.num_layers * chunks, "decode_attention": 0}
+            "fused_mlp": mlp_layers(cfg) * chunks, "decode_attention": 0}
 
 
 def per_decode_step(cfg):
     return {"rmsnorm": 2 * cfg.num_layers + 1, "flash_attention": 0,
-            "fused_mlp": cfg.num_layers, "decode_attention": cfg.num_layers}
+            "fused_mlp": mlp_layers(cfg), "decode_attention": cfg.num_layers}
+
+
+def tc_kernels(cfg, names):
+    """The tensor-core kernels of ``names`` that the model runs: no MLP GEMM
+    where its path has no fused MLP."""
+    return tuple(n for n in names if n != "mlp_gemm_kernel" or mlp_layers(cfg))
+
+
+# ---- the MoE family: the plain path on the kernel path's routes --------------
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside do not count: the counters are put back after (the
+    comparison runs of this script beside an engine's main path)."""
+    from repro_torch.core import compiled
+    before = compiled.read_launches()
+    try:
+        yield
+    finally:
+        after = compiled.read_launches()
+        compiled.add_launches({k: before[k] - after[k] for k in before})
+
+
+class RouteTape:
+    """The routes of every ``models.moe._route`` call of one run, in call
+    order (one a dispatch: a layer's, or one hybrid chunk of it): each
+    call's capacity C and route (gate weights, experts, order, dest,
+    dest_tok); where the run replayed another's tape, ``own`` holds the
+    routes its own router chose."""
+
+    def __init__(self, E: int):
+        self.E, self.calls, self.own = E, [], []
+
+    def decisions(self, entries=None):
+        """Each call's chosen experts and keep flags (a slot below E C)."""
+        return [{"experts": r[1], "keep": r[4].view(r[1].shape) < self.E * C}
+                for C, r in (self.calls if entries is None else entries)]
+
+    def drops(self):
+        """Dropped assignments of each call."""
+        return [int((~d["keep"]).sum()) for d in self.decisions()]
+
+    def drop_line(self) -> str:
+        """Each call's dropped share: assignments past C over t K."""
+        return ", ".join(f"{int((~d['keep']).sum())}/{d['keep'].numel()}"
+                         for d in self.decisions())
+
+    def rows(self, torch, idx, n_layers: int) -> "RouteTape":
+        """A tape of one call a layer: the gate weights and experts of
+        tokens ``idx`` of each layer's calls (its chunks, joined)."""
+        per = len(self.calls) // n_layers
+        out = RouteTape(self.E)
+        for layer in range(n_layers):
+            calls = self.calls[layer * per:(layer + 1) * per]
+            w, e = (torch.cat([r[i] for _, r in calls])[idx]
+                    for i in (0, 1))
+            out.calls.append((None, (w, e)))
+        return out
+
+
+@contextlib.contextmanager
+def taped_routes(cfg, replay: typing.Optional[RouteTape] = None,
+                 gates: str = "taped"):
+    """Tape ``models.moe``'s router inside. Without ``replay`` each call's
+    route is recorded as it is. With ``replay`` (the tape of the same
+    forward through the kernels) each call still computes its own route
+    (kept in ``own``, for ``Flips``) but dispatches the replayed call's
+    experts, in slots reckoned at this call's C, with the replayed gate
+    weights (``gates`` "taped") or with this router's own weights over
+    those experts ("own"). So the plain path runs the kernel path's routes:
+    a router's rounding flip moves no token to another expert or slot, and
+    the two paths' outputs are held to the limits."""
+    import torch
+
+    from repro_torch.models import moe
+    tape, original = RouteTape(cfg.num_experts), moe._route
+
+    def route(xr, router, cfg_, C):
+        own = original(xr, router, cfg_, C)
+        if replay is None:
+            tape.calls.append((C, own))
+            return own
+        w, experts = replay.calls[len(tape.calls)][1][:2]
+        if gates == "own":
+            probs = torch.softmax((xr @ router).float(), dim=-1)
+            w = probs.gather(1, experts)
+            w = w / w.sum(dim=-1, keepdim=True)
+        taken = (w, experts) + moe._slots(experts, cfg_.num_experts, C)
+        tape.calls.append((C, taken))
+        tape.own.append((C, own))
+        return taken
+
+    moe._route = route
+    try:
+        yield tape
+    finally:
+        moe._route = original
+
+
+@contextlib.contextmanager
+def uncapped():
+    """Inside, every MoE dispatch has a slot for each of its rows in every
+    expert (C = t, rounded up to 8): no assignment drops."""
+    from repro_torch.models import moe
+    original = moe._capacity
+    moe._capacity = lambda rows, cfg: max(8, -(-rows // 8) * 8)
+    try:
+        yield
+    finally:
+        moe._capacity = original
+
+
+class Flips:
+    """(token, dispatch) routing decisions of a run on another run's routes
+    (``taped_routes`` with ``replay``): a decision flips where the run's
+    own router chose other experts for the token; its own keep flags may
+    differ besides (a flip moves other tokens' slots). The run dispatched
+    the replayed routes, so a flip does not cascade into later layers: the
+    share is each router's rounding alone, held to MOE_FLIP_SHARE where
+    ``gated`` (printed only where the sample is too small for a share)."""
+
+    def __init__(self, what: str, gated: bool = True):
+        self.what, self.pairs, self.flipped, self.kept = what, 0, 0, 0
+        self.gated = gated
+
+    def add(self, tape: RouteTape) -> None:
+        for ka, pa in zip(tape.decisions(), tape.decisions(tape.own)):
+            experts = (ka["experts"] != pa["experts"]).any(-1)
+            keeps = (ka["keep"] != pa["keep"]).any(-1)
+            self.pairs += experts.numel()
+            self.flipped += int(experts.sum())
+            self.kept += int((keeps & ~experts).sum())
+
+    def check(self) -> None:
+        share = self.flipped / max(self.pairs, 1)
+        limit = f"limit {MOE_FLIP_SHARE}" if self.gated else "not gated"
+        print(f"{self.what}: {self.flipped} of {self.pairs} (token, layer) "
+              f"routing decisions flip (share {share:.6f}, {limit}); "
+              f"{self.kept} more differ in their keep flags only",
+              flush=True)
+        if self.gated and share > MOE_FLIP_SHARE:
+            fail(f"{self.what}: routing decisions differ at a share "
+                 f"{share:.6f} above {MOE_FLIP_SHARE}")
+
+
+def answer_scores(logits_row, answer):
+    """The engine's constrained scores of one logits row: softmax over the
+    answer ids, in float64."""
+    import numpy as np
+    sub = logits_row[list(answer)].double().cpu().numpy()
+    sub = np.exp(sub - sub.max())
+    return dict(zip(answer, (sub / sub.sum()).tolist()))
+
+
+def forced_layers(torch, cfg, params, tokens, what: str, positions=None,
+                  seg_ids=None) -> None:
+    """Layer by layer, on the same input (the kernel path's residual
+    stream), the kernel path's block (its routes taped) and the plain
+    path's block twice on the kernel block's experts and slots: with the
+    kernel block's gate weights too, and with the plain router's own gate
+    weights over those experts. For each, two readings over the real
+    tokens: the largest per-token relative error ``block_rel`` (|kernel -
+    plain| over |plain|, each a token's D-vector norm), held at the taped
+    gate weights to MOE_BLOCK_REL; and the largest element's reading
+    against BF16_TOL, printed with that element's input and output: a
+    block adds its update to a bf16 residual in place, so where the two
+    nearly cancel the output keeps the rounding of the input's magnitude
+    (PERF.md). The plain router's flips are held to MOE_FLIP_SHARE."""
+    from repro_torch.models import transformer as tfm
+    flips = Flips(f"{cfg.name} {what}, layer by layer")
+    x = tfm._inputs(params, cfg, tokens, None)
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+    real = (torch.ones(B * S, dtype=torch.bool, device=x.device)
+            if seg_ids is None else (seg_ids >= 0).reshape(-1))
+    worst = {"taped": (0.0, 0.0, ""), "own": (0.0, 0.0, "")}
+    kw = dict(positions=positions, window=cfg.sliding_window,
+              chunk=cfg.hybrid_chunk, seg_ids=seg_ids)
+    with uncounted(), torch.no_grad():
+        for layer in range(cfg.num_layers):
+            bp = tfm.layer_params(params["blocks"], layer)
+            with taped_routes(cfg) as tape:
+                xk, _ = tfm._block_full(bp, x.clone(), cfg, **kw)
+            for gates in worst:
+                with plain_versions(), taped_routes(cfg, tape,
+                                                    gates) as forced:
+                    xp, _ = tfm._block_full(bp, x.clone(), cfg, **kw)
+                xi, a, b = (t.reshape(B * S, -1)[real].float()
+                            for t in (x, xk, xp))
+                rel = ((a - b).norm(dim=-1)
+                       / b.norm(dim=-1).clamp_min(1e-30)).max().item()
+                atol, rtol = BF16_TOL
+                elem = (a - b).abs() / (atol + rtol * b.abs())
+                at = int(elem.argmax())
+                i, j = divmod(at, elem.shape[1])
+                got = (rel, elem.flatten()[at].item(),
+                       f"layer {layer}: input {xi[i, j].item():.5g}, kernel "
+                       f"{a[i, j].item():.5g}, plain {b[i, j].item():.5g}")
+                rel_w, elem_w, _ = worst[gates]
+                worst[gates] = (max(rel_w, got[0]),) + (
+                    got[1:] if got[1] >= elem_w else worst[gates][1:])
+                del xp, xi, a, b, elem
+            flips.add(forced)
+            x = xk
+    del x, xk
+    torch.cuda.empty_cache()
+    for gates, (rel, elem, where) in worst.items():
+        held = (f"held to MOE_BLOCK_REL {MOE_BLOCK_REL}" if gates == "taped"
+                else "printed")
+        print(f"{cfg.name} {what}, layer by layer (each plain block on the "
+              f"kernel block's input, experts and slots; gate weights "
+              f"{gates}): block_rel {rel:.6f} ({held}); largest element "
+              f"{elem:.4f} against BF16_TOL at {where}", flush=True)
+    flips.check()
+    if worst["taped"][0] > MOE_BLOCK_REL:
+        fail(f"{cfg.name} {what}: an MoE block's output disagrees with its "
+             f"plain version on the same routes")
+
+
+def moe_step_twins(torch, eng, answer, flips: Flips):
+    """The engine's last step (an MoE model's) run again eagerly on the same
+    static inputs of its compiled forward: through the kernels, taping its
+    routes, and through the plain versions on those routes (launches not
+    counted; the plain router's own flips counted in ``flips``). Every
+    request's score is held within SCORE_GATE: the engine's (a graph
+    replay) against the eager kernel run's, and that against the plain
+    run's. Returns the step's dropped assignments per dispatch."""
+    path, key = eng._last_path
+    f = eng._fns[path][key]
+    rec = eng.batch_records[-1]
+    with uncounted(), torch.no_grad():
+        with taped_routes(eng.cfg) as tape:
+            klog, _ = f.fn(**f.inputs)
+        with plain_versions(), taped_routes(eng.cfg, tape) as forced:
+            plog, _ = f.fn(**f.inputs)
+        torch.cuda.synchronize()
+    # the eager runs' freed blocks go back to the card: a CUDA graph's
+    # capture allocates from its engine's private pool, which cannot take
+    # them from the allocator's cache
+    torch.cuda.empty_cache()
+    flips.add(forced)
+    drops = tape.drops()
+    for n, rid in enumerate(rec.req_ids):
+        res = eng.results[rid]
+        ks, ps = answer_scores(klog[n], answer), answer_scores(plog[n], answer)
+        graph = max(abs(res["scores"][t] - ks[t]) for t in answer)
+        plain = max(abs(ks[t] - ps[t]) for t in answer)
+        print(f"{eng.cfg.name} step twin {path} req {rid}: |engine - eager "
+              f"kernels| {graph:.3e}, |kernels - plain| {plain:.3e} (the "
+              f"kernels' routes); dropped per dispatch {drops}", flush=True)
+        if graph >= SCORE_GATE or plain >= SCORE_GATE:
+            fail(f"{eng.cfg.name} step {path} {key}: scores disagree")
+    return drops
+
+
+MOE_STAGES = (("_route", "router and slots"), ("_dispatch", "dispatch"),
+              ("_experts", "experts' products"), ("_combine", "combine"))
+
+
+def trace_moe_miss(torch, dev, cfg, params, rng) -> None:
+    """Where an MoE miss's device time goes: one eager ``prefill`` at the
+    solo miss's shape (S 2048, one hybrid chunk; warmed up first), traced
+    with ``torch.profiler``, each stage of ``models.moe`` in a
+    ``record_function`` range (router and slots, dispatch, the experts'
+    products, combine; the ranges' device time is their kernels'), beside
+    attention, the fused MLP (the shared expert) and RMSNorm by kernel
+    name, and the other device ops. Launches are not counted."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 2048)),
+                           device=dev)
+    saved = {name: getattr(moe, name) for name, _ in MOE_STAGES}
+
+    def ranged(name, fn):
+        def run(*args, **kw):
+            with record_function(f"moe.{name}"):
+                return fn(*args, **kw)
+        return run
+
+    with uncounted(), torch.no_grad():
+        tfm.prefill(params, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        for name, fn in saved.items():
+            setattr(moe, name, ranged(name, fn))
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                tfm.prefill(params, cfg, {"tokens": toks})
+                torch.cuda.synchronize()
+        finally:
+            for name, fn in saved.items():
+                setattr(moe, name, fn)
+    torch.cuda.empty_cache()
+    evs = prof.events()
+    device = [e for e in evs
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the ranges come back on the device timeline too (spans over their
+    # kernels): a kernel counts for the stage whose span holds its start
+    spans = [(e.time_range.start, e.time_range.end, e.name[len("moe."):])
+             for e in device if e.name.startswith("moe.")]
+    kernels = [e for e in device if not e.name.startswith("moe.")]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    stage = dict(MOE_STAGES)
+    ms = dict.fromkeys(stage.values(), 0.0)
+    if spans:
+        for e in kernels:
+            hit = next((n for a, b, n in spans
+                        if a <= e.time_range.start < b), None)
+            if hit in stage:
+                ms[stage[hit]] += e.time_range.elapsed_us() / 1e3
+    else:                       # the ranges' kernels, by the host's tree
+        for name, label in MOE_STAGES:
+            ms[label] = sum(e.device_time_total for e in evs
+                            if e.name == f"moe.{name}") / 1e3
+    for label, keys in (("attention", ("flash_fwd", "flash_combine")),
+                        ("MLP (shared expert)", ("mlp_gemm", "split_sum",
+                                                 "fused_mlp")),
+                        ("rmsnorm", ("rmsnorm",))):
+        ms[label] = sum(e.time_range.elapsed_us() for e in kernels
+                        if any(k in e.name for k in keys)) / 1e3
+    ms["other (projections, RoPE, embedding, head)"] = busy - sum(ms.values())
+    print(f"trace {cfg.name} MoE miss S=2048 (eager prefill, L="
+          f"{cfg.num_layers}): device busy {busy:.3f} ms; device ms by part "
+          f"({'ranges on the device timeline' if spans else 'host ranges'}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()), flush=True)
 
 
 def check_full_prefill(torch, dev, cfg, params) -> None:
@@ -1513,16 +2010,24 @@ def check_full_prefill(torch, dev, cfg, params) -> None:
                            device=dev)
     reset_launches()
     with torch.no_grad():
-        got, _ = tfm.prefill(params, cfg, {"tokens": toks}, kv_keep=512)
+        with taped_routes(cfg) as tape:
+            got, _ = tfm.prefill(params, cfg, {"tokens": toks}, kv_keep=512)
         torch.cuda.synchronize()
         if kernel_launches(read_launches()) != per_forward(cfg):
             fail(f"full prefill launches {read_launches()}, expected "
                  f"{per_forward(cfg)}")
-        with plain_versions():
+        with plain_versions(), taped_routes(cfg, tape) as forced:
             want, _ = tfm.prefill(params, cfg, {"tokens": toks}, kv_keep=512)
         torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         fail("full prefill: non-finite logits")
+    if cfg.is_moe:
+        print(f"{cfg.name} full prefill S=512: dropped assignments per dispatch "
+              f"(kernels) {tape.drop_line()}", flush=True)
+        flips = Flips(f"{cfg.name} full prefill S=512, end to end")
+        flips.add(forced)
+        flips.check()
+        forced_layers(torch, cfg, params, toks, "full prefill S=512")
     err = (got - want).abs()
     max_tol, mean_tol = logits_limits(want)
     print(f"full prefill S=512: logits std={want.std().item():.4f} "
@@ -1620,17 +2125,23 @@ def check_packed_forwards(torch, dev, spec: Spec, cfg, params) -> None:
             {"k": pk, "v": pv}, hlay["prefix_pos"], hlay["seg_qidx"],
             kv_indices=torch.arange(S, device=dev))
 
-    for name, fn, mode in (("prefill_packed", miss, "segmented"),
-                           ("prefill_packed_with_prefix", hit,
-                            "positioned")):
+    flips = Flips(f"{cfg.name} packed forwards, end to end")
+    for name, fn, mode in (
+            ("prefill_packed", miss, "segmented"),
+            ("prefill_packed_with_prefix", hit, "positioned")):
         reset_launches()
         with torch.no_grad():
-            got, got_kv = fn()
+            with taped_routes(cfg) as tape:
+                got, got_kv = fn()
             torch.cuda.synchronize()
             launches = read_launches()
-            with plain_versions():
+            with plain_versions(), taped_routes(cfg, tape) as forced:
                 want, want_kv = fn()
             torch.cuda.synchronize()
+        if cfg.is_moe:
+            flips.add(forced)
+            print(f"{cfg.name} {name}: dropped assignments per dispatch "
+                  f"(kernels) {tape.drop_line()}", flush=True)
         if (kernel_launches(launches) != per_forward(cfg)
                 or launches[f"flash_attention[{mode}]"] != Lyr):
             fail(f"{name} launches {launches}, expected {per_forward(cfg)} "
@@ -1642,6 +2153,10 @@ def check_packed_forwards(torch, dev, spec: Spec, cfg, params) -> None:
               f"{want.std().item():.4f}, gathered KV max|kernel-plain|="
               f"{kv_err:.4e}", flush=True)
         compare_rows(torch, got, want, what)
+    if cfg.is_moe:
+        flips.check()
+        forced_layers(torch, cfg, params, toks, "prefill_packed S=2048",
+                      positions=lay["positions"], seg_ids=lay["seg_ids"])
 
 
 def check_embeds(torch, dev, cfg, params) -> None:
@@ -1709,13 +2224,16 @@ def run_engine(torch, dev, spec: Spec, cfg, params):
           f"{eng.jct_model.a * 1e3:.6f} ms/token + "
           f"{eng.jct_model.b * 1e3:.3f} ms (pearson {r:.4f}; slope and "
           f"pearson >= {FIT_PEARSON}: {fit_ok(eng.jct_model)})", flush=True)
-    served = []
+    served, drops = [], {}
+    flips = Flips(f"{cfg.name} solo engine steps, end to end")
     for toks in trace + trace:               # pass 2 reuses each whole chain
         rid = eng.submit(toks, allowed_tokens=answer)
         if eng.step() != rid:
             fail("the engine served another request than the one queued")
         res, rec = eng.results[rid], eng.batch_records[-1]
         served.append((toks, res, rec))
+        if cfg.is_moe:                       # the same step, plain
+            drops[rid] = moe_step_twins(torch, eng, answer, flips)
         print(f"{cfg.name} step n_input={res['n_input']} "
               f"n_cached={res['n_cached']} "
               f"S={rec.S} P={rec.pmax} wall_ms={rec.wall * 1e3:.3f} "
@@ -1752,13 +2270,29 @@ def run_engine(torch, dev, spec: Spec, cfg, params):
             if ref["n_cached"] != 0:
                 fail("the cold engine hit its cache")
             cold_scores[key] = ref["scores"]
+            if cfg.is_moe:
+                drops[key] = moe_step_twins(torch, cold, answer, flips)
         diff = max(abs(cold_scores[key][t] - res["scores"][t])
                    for t in answer)
         shape = (rec.S, rec.pmax)
         worst[shape] = max(worst.get(shape, 0.0), diff)
-    print(f"{cfg.name} hits vs cold engine, max |score diff| per (S, P): "
-          f"{worst} (gate {SCORE_GATE})", flush=True)
-    if len(worst) < 2 or max(worst.values()) >= SCORE_GATE:
+        if cfg.is_moe:
+            print(f"{cfg.name} hit vs cold (S={rec.S}, P={rec.pmax}): |score "
+                  f"diff| {diff:.4e}; dropped per dispatch: hit "
+                  f"{drops[res['req_id']]}, cold {drops[key]}", flush=True)
+    if cfg.is_moe:
+        # capacity is per forward call (ROADMAP C17): a hit routes its
+        # suffix alone, so where an assignment drops it may score otherwise
+        # than a cold run; each step was held to its plain twin above, on
+        # the kernels' routes
+        print(f"{cfg.name} hits vs cold engine, max |score diff| per (S, P): "
+              f"{worst} (not gated: ROADMAP C17)", flush=True)
+        flips.check()
+    else:
+        print(f"{cfg.name} hits vs cold engine, max |score diff| per (S, P): "
+              f"{worst} (gate {SCORE_GATE})", flush=True)
+    if len(worst) < 2 or (not cfg.is_moe
+                          and max(worst.values()) >= SCORE_GATE):
         fail("prefix-cache hit scores disagree with a cold engine, or the "
              "hits did not cover both passes' shapes")
     warm = {}
@@ -1773,6 +2307,8 @@ def run_engine(torch, dev, spec: Spec, cfg, params):
               f"(n={len(walls)}{eager})", flush=True)
     trace_steps(torch, eng, cfg, rng, warm_medians(eng), answer)
     report_graphs(torch, eng, f"{cfg.name} solo engine")
+    if cfg.is_moe:
+        trace_moe_miss(torch, dev, cfg, params, rng)
     return launches
 
 
@@ -1821,12 +2357,20 @@ def run_packed_engine(torch, dev, spec: Spec, cfg, params):
         return waves
 
     waves = round_waves(2) + round_waves(2)
+
+    flips = Flips(f"{cfg.name} packed engine steps, end to end")
+    drops = {}
+
     def serve(engine, reqs):
         ids = [engine.submit(t, allowed_tokens=answer) for t in reqs]
         recs = []
         while engine.queue:
             engine.step()
             recs.append(engine.batch_records[-1])
+            if cfg.is_moe:                   # the same step, plain
+                d = moe_step_twins(torch, engine, answer, flips)
+                for rid in engine.batch_records[-1].req_ids:
+                    drops[(id(engine), rid)] = d
         return [engine.results[i] for i in ids], recs
 
     packed = []
@@ -1879,14 +2423,26 @@ def run_packed_engine(torch, dev, spec: Spec, cfg, params):
         for g, w in zip(got, want):
             if g["n_cached"] != w["n_cached"] or "corrupt" in g:
                 fail(f"packed vs solo: {g} vs {w}")
-            worst = max(worst, max(abs(g["scores"][t] - w["scores"][t])
-                                   for t in answer))
+            diff = max(abs(g["scores"][t] - w["scores"][t]) for t in answer)
+            worst = max(worst, diff)
+            if cfg.is_moe:
+                print(f"{cfg.name} packed vs solo {kind} n_input="
+                      f"{g['n_input']} n_cached={g['n_cached']}: |score diff| "
+                      f"{diff:.4e}; dropped per dispatch: packed step "
+                      f"{drops[(id(eng), g['req_id'])]}, solo step "
+                      f"{drops[(id(solo), w['req_id'])]}", flush=True)
+    # an MoE packed row shares its step's capacity (ROADMAP C17): where an
+    # assignment drops it may score otherwise than solo; each step was held
+    # to its plain twin above, on the kernels' routes
+    gate = "not gated: ROADMAP C17" if cfg.is_moe else f"gate {SCORE_GATE}"
     print(f"{cfg.name} packed engine vs solo engine, max |score diff| over "
           f"{sum(len(g) for _, g, _, _, _ in served)} requests: "
-          f"{worst:.3e} (gate {SCORE_GATE}); stats: "
+          f"{worst:.3e} ({gate}); stats: "
           f"{ {k: eng.stats()[k] for k in ('packed_steps', 'packed_requests', 'packed_hit_requests', 'pack_skew_splits')} }",
           flush=True)
-    if worst >= SCORE_GATE:
+    if cfg.is_moe:
+        flips.check()
+    elif worst >= SCORE_GATE:
         fail("packed scores disagree with the solo engine's")
     check_path_layouts(torch, dev, spec, cfg, miss_layouts)
 
@@ -2005,12 +2561,17 @@ def report_graphs(torch, eng, label: str) -> None:
     engine adds per replay), the live graphs hold no more than the
     engine's budget and one graph, and the pool is shared: at most what
     the graphs hold plus the largest single capture's growth (one
-    forward's temporaries), with POOL_SLACK of segment rounding a graph."""
+    forward's temporaries), with POOL_SLACK of segment rounding a graph;
+    at an MoE model, MOE_POOL_SLACK more for each graph but the largest
+    (its dispatch buffers are sized by its capacity C; the excess over the
+    dense rule is printed)."""
     graphs = eng.graphs()
     pool = sum(f.pool_bytes for f in graphs)
     held = [f.held_bytes for f in graphs]
     biggest = max((f.pool_bytes for f in graphs), default=0)
-    limit = sum(held) + biggest + POOL_SLACK * len(graphs)
+    dense = sum(held) + biggest + POOL_SLACK * len(graphs)
+    moe = MOE_POOL_SLACK * (len(graphs) - 1) if eng.cfg.is_moe else 0
+    limit = dense + moe
     if not graphs or any(f.graph is None or not f.replays for f in graphs):
         fail(f"{label}: a forward was not captured or never replayed")
     for f in graphs:
@@ -2028,7 +2589,8 @@ def report_graphs(torch, eng, label: str) -> None:
           f"{sum(f.capture_ms for f in graphs):.1f} ms; held {sum(held)} "
           f"bytes (budget {budget}); prefix buffer "
           f"{eng.prefix_store_bytes()} bytes; pool {pool} bytes (limit "
-          f"{limit}: held {sum(held)} + largest capture {biggest} + slack); "
+          f"{limit}: held {sum(held)} + largest capture {biggest} + slack"
+          f"{f' + MOE_POOL_SLACK a graph but the largest {moe}; {pool - dense} over the dense rule' if moe else ''}); "
           f"memory_reserved {torch.cuda.memory_reserved()} bytes",
           flush=True)
     if sum(held) > budget + max(held):
@@ -2190,8 +2752,8 @@ def run_decode(torch, dev, spec: Spec, cfg, params):
     from repro_torch.models.model import build
     api = build(cfg)
     total = {}
-    runs = (("decode", lambda: check_decode_consistency(torch, dev, api,
-                                                         params)),
+    runs = (("decode", lambda: check_decode_consistency(
+                torch, dev, api, params, *spec.dec_cons)),
             ("decode_depth", lambda: run_decode_depth(torch, dev, api, params,
                                                       spec.dec_b)))
     for name, run in runs:
@@ -2203,49 +2765,74 @@ def run_decode(torch, dev, spec: Spec, cfg, params):
     return total
 
 
-def check_decode_consistency(torch, dev, api, params):
-    """``prefill`` of DEC_PREFIX tokens fills an ``init_cache(2, 2048)``;
-    DEC_STEPS ``decode_step``s then feed the next tokens of a seeded
+def check_decode_consistency(torch, dev, api, params, B: int = DEC_CONS_B,
+                             P: int = DEC_PREFIX):
+    """``prefill`` of P tokens (DEC_PREFIX) fills an ``init_cache(B, 2P)``
+    (B = DEC_CONS_B; a window shorter than P makes it a ring, each of the
+    last W tokens at slot p mod W); DEC_STEPS ``decode_step``s then feed
+    the next tokens of a seeded
     sequence, and each step's logits are held against ``prefill`` of the
     sequence up to that token — through the kernels, then through the
     plain versions — within the full-width logits limits, with the
-    prefill's argmax in the decode's top 5. Returns the launches of the
-    kernel route's decode steps."""
+    prefill's argmax in the decode's top 5. At an MoE config the check runs
+    with room in every expert (``uncapped``: capacity is priced per call,
+    so a prefill may drop assignments that a decode step of B tokens never
+    does, ROADMAP C17), and each decode step dispatches its prefill's
+    routes for the same tokens (each row's last token's experts and gate
+    weights, ``taped_routes``); the decode router's own flips are printed
+    (64-256 decisions: one flip moves the share by up to 1.6%). Returns the
+    launches of the kernel route's decode steps."""
     import numpy as np
     cfg = api.cfg
-    B, P = DEC_CONS_B, DEC_PREFIX
     rng = np.random.default_rng(SEED + 4)
     seq = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                        (B, P + DEC_STEPS)), device=dev)
     total = {}
+    flips = Flips(f"{cfg.name} decode vs prefill", gated=False)
     for route in ("kernels", "plain"):
         ctx = plain_versions() if route == "plain" else contextlib.nullcontext()
-        with torch.no_grad(), ctx:
+        with torch.no_grad(), ctx, uncapped():
             cache = api.init_cache(B, 2 * P, device=dev)
             _, kv = api.prefill(params, {"tokens": seq[:, :P]}, kv_keep=P)
+            W = cache["k"].shape[2]
             for n in ("k", "v"):
-                cache[n][:, :, :P] = kv[n]
+                if W < P:    # a window's ring: the last W tokens, each at
+                    slots = torch.arange(P - W, P, device=dev) % W  # p % W
+                    cache[n][:, :, slots] = kv[n][:, :, P - W:]
+                else:
+                    cache[n][:, :, :P] = kv[n]
             del kv
             for i in range(DEC_STEPS):
+                n = P + i + 1
+                with taped_routes(cfg) as tape:
+                    want, _ = api.prefill(params, {"tokens": seq[:, :n]})
+                last = [b * n + n - 1 for b in range(B)]  # each row's token
                 pos = torch.full((B,), P + i, dtype=torch.int32, device=dev)
                 reset_launches()
-                got, cache = api.decode_step(params, seq[:, P + i], cache, pos)
+                taken = (tape.rows(torch, last, cfg.num_layers)
+                         if cfg.is_moe else None)
+                with taped_routes(cfg, taken) as forced:
+                    got, cache = api.decode_step(params, seq[:, P + i], cache,
+                                                 pos)
                 step = read_launches()
+                torch.cuda.synchronize()
                 launches = kernel_launches(step)
                 if route == "kernels":
                     for k, v in step.items():
                         total[k] = total.get(k, 0) + v
-                want, _ = api.prefill(params, {"tokens": seq[:, :P + i + 1]})
-                torch.cuda.synchronize()
                 expect = (per_decode_step(cfg) if route == "kernels"
                           else dict.fromkeys(kernel_modules(), 0))
                 if launches != expect:
                     fail(f"decode step ({route}) launches {launches}, "
                          f"expected {expect}")
+                if cfg.is_moe:
+                    flips.add(forced)
                 compare_rows(torch, got, want,
                              f"{cfg.name} decode vs prefill ({route}) step "
                              f"{i} position {P + i}",
                              names=("decode", "prefill"), unit="row")
+    if cfg.is_moe:
+        flips.check()
     return total
 
 
@@ -2366,7 +2953,8 @@ def trace_decode_step(torch, api, params, cache, tokens, position) -> None:
     gqa = api.cfg.num_heads > api.cfg.num_kv_heads
     report_trace(torch, prof, f"{api.cfg.name} decode B={tokens.shape[0]} "
                  f"S={cache['k'].shape[2]}", wall,
-                 expect=TC_DECODE + (("decode_split_tc_kernel",) if gqa
+                 expect=tc_kernels(api.cfg, TC_DECODE)
+                 + (("decode_split_tc_kernel",) if gqa
                                      else ()))
 
 
@@ -2388,6 +2976,10 @@ def run_long_inputs(torch, dev, spec: Spec, cfg, params):
     report_mil(torch, dev, cfg, mm)
     check_long_kernels(torch, dev, spec, cfg)
     check_peak_memory(torch, dev, spec, cfg, params, mm)
+    if not spec.long_request:
+        print(f"{cfg.name} phase 8 took {time.perf_counter() - t0:.1f} s "
+              f"(the peak ladder only)", flush=True)
+        return {}
     launches, samples = run_long_request(torch, dev, spec, cfg, params, mm)
     roof = calibrate_roofline(cfg, samples)
     if "replay" in spec.phases:
@@ -2460,28 +3052,39 @@ def check_long_kernels(torch, dev, spec: Spec, cfg) -> None:
 
     S, H, KV, d = spec.long_lens[-1], cfg.num_heads, cfg.num_kv_heads, \
         cfg.head_dim
+    W = cfg.sliding_window
     q, k, v = randn(1, S, H, d), randn(1, S, KV, d), randn(1, S, KV, d)
-    got = fa.flash_attention(q, k, v)
+    got = fa.flash_attention(q, k, v, window=W)
     tail = compare(torch, got[:, -LONG_TAIL:], fa.flash_attention_plain(
-        q[:, -LONG_TAIL:], k, v, q_offset=S - LONG_TAIL), ATTN_BF16_TOL,
-        f"flash_attention causal S={S}, last {LONG_TAIL} rows")
+        q[:, -LONG_TAIL:], k, v, q_offset=S - LONG_TAIL, window=W),
+        ATTN_BF16_TOL, f"flash_attention causal S={S} window {W}, last "
+        f"{LONG_TAIL} rows")
     head = compare(torch, got[:, :LONG_TAIL], fa.flash_attention_plain(
-        q[:, :LONG_TAIL], k[:, :LONG_TAIL], v[:, :LONG_TAIL]), ATTN_BF16_TOL,
-        f"flash_attention causal S={S}, first {LONG_TAIL} rows")
+        q[:, :LONG_TAIL], k[:, :LONG_TAIL], v[:, :LONG_TAIL], window=W),
+        ATTN_BF16_TOL, f"flash_attention causal S={S}, first {LONG_TAIL} "
+        f"rows")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     del got
-    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v), iters=10)
-    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=H != KV), iters=10)
-    flops = 4.0 * d * H * S * (S + 1) / 2
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, window=W),
+                 iters=10)
+    # SDPA has no window but a dense mask, which its GQA path would expand
+    # to an (H, S, S) score tensor at this S: no yardstick at a window
+    lib = None if W else time_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=H != KV), iters=10)
+    pairs = (S * (S + 1) / 2 if not W else
+             sum(min(W, r + 1) for r in range(S)))
+    flops = 4.0 * d * H * pairs
     b_ms, b_by = bound(chip, flops, 2 * (2 * S * H * d + 2 * S * KV * d))
     splits, chunk = fa.split_rule(1, S, H, S, fa._sm_count(dev.index))
-    print(f"long kernel flash_attention[causal S={S}] [B=1 H={H} KV={KV} "
+    print(f"long kernel flash_attention[causal S={S}"
+          f"{f' window {W}' if W else ''}] [B=1 H={H} KV={KV} "
           f"d={d} bf16, key split {splits}x{chunk} tiles]: max_abs_err last "
           f"/ first {LONG_TAIL} rows {tail:.3e} / {head:.3e}; ms={ms:.4f} "
-          f"library_ms={lib:.4f} (SDPA) bound_ms={b_ms:.4f} ({b_by}); "
+          f"library_ms={'n/a' if lib is None else f'{lib:.4f} (SDPA)'} "
+          f"bound_ms={b_ms:.4f} ({b_by}); "
           f"{flops / ms * 1e-9:.1f} TFLOP/s, kernel / library "
-          f"{ms / lib:.2f}", flush=True)
+          f"{'n/a' if lib is None else f'{ms / lib:.2f}'}", flush=True)
     del q, k, v, qt, kt, vt
 
     T, D, Fd = spec.long_lens[-1], cfg.d_model, cfg.d_ff
@@ -2499,6 +3102,8 @@ def check_long_kernels(torch, dev, spec: Spec, cfg) -> None:
           f"{time_ms(torch, lambda: rn.rmsnorm(x, w), iters=10):.4f} "
           f"library_ms={time_ms(torch, lambda: F.rms_norm(x, (D,), w1, 1e-6), iters=10):.4f} "
           f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    if not mlp_layers(cfg):
+        return                      # the fused MLP is off the model's path
     wg, wu = randn(D, Fd, std=D ** -0.5), randn(D, Fd, std=D ** -0.5)
     wd = randn(Fd, D, std=Fd ** -0.5)
     got = fm.fused_mlp(x, wg, wu, wd)
@@ -3297,7 +3902,17 @@ def warm_medians(eng):
 
 
 def trace_steps(torch, eng, cfg, rng, medians, answer) -> None:
-    """One more warm miss step and one warm hit step (solo)."""
+    """One more warm miss step and one warm hit step (solo). At an MoE
+    model a miss and a hit run untraced first: the step twins gave the
+    allocator's cache back to the card, and the first steps after pay
+    ``cudaMalloc`` for their cache blocks."""
+    if cfg.is_moe:
+        warm = rng.integers(0, cfg.vocab_size, PROFILE_LEN).tolist()
+        for _ in range(2):
+            eng.submit(warm + rng.integers(0, cfg.vocab_size,
+                                           POST_LEN).tolist(),
+                       allowed_tokens=answer)
+            eng.step()
     user = rng.integers(0, cfg.vocab_size, PROFILE_LEN).tolist()
     for label in ("miss", "hit"):
         eng.submit(user + rng.integers(0, cfg.vocab_size, POST_LEN).tolist(),
@@ -3342,7 +3957,8 @@ def trace_one_step(torch, eng, label: str, medians,
     else:
         label = f"{label} S={rec.S} P={rec.pmax}"
     label = f"{eng.cfg.name} {label} ({graph_use(rec)})"
-    report_trace(torch, prof, label, rec.wall * 1e3, expect=TC_PREFILL,
+    report_trace(torch, prof, label, rec.wall * 1e3,
+                 expect=tc_kernels(eng.cfg, TC_PREFILL),
                  unprofiled=medians.get(shape_key(rec)))
 
 

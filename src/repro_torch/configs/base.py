@@ -8,27 +8,25 @@ import dataclasses
 
 # The families the port runs: the reference's transformer, whose vlm and
 # audio configs are dense blocks with an untied head (vlm may take
-# precomputed embeddings in place of token ids).
-PORTED_FAMILIES = ("dense", "vlm", "audio")
+# precomputed embeddings in place of token ids), and whose moe configs
+# replace each block's MLP with a mixture of experts (``models/moe.py``).
+PORTED_FAMILIES = ("dense", "vlm", "audio", "moe")
 # The ROADMAP item that brings each family or feature the port refuses.
-UNPORTED = {"moe": "A6, MoE (models/moe.py)",
-            "ssm": "A6, SSM and hybrid (models/mamba2.py)",
+UNPORTED = {"ssm": "A6, SSM and hybrid (models/mamba2.py)",
             "hybrid": "A6, SSM and hybrid (models/hybrid.py)",
             "local_global": "A6, local_global (gemma2)"}
 
 
 def _unported_family(cfg: "ModelConfig"):
-    """``cfg``'s family where the port does not run it yet (MoE, SSM,
-    hybrid), else None."""
-    if cfg.is_moe:
-        return "moe"
+    """``cfg``'s family where the port does not run it yet (SSM, hybrid),
+    else None."""
     return None if cfg.family in PORTED_FAMILIES else cfg.family
 
 
 def check_ported(cfg: "ModelConfig") -> None:
     """Raise ``NotImplementedError``, naming its ROADMAP item, unless the
-    port runs ``cfg``: a family of ``PORTED_FAMILIES``, no experts, no
-    local/global layer pairs."""
+    port runs ``cfg``: a family of ``PORTED_FAMILIES`` without local/global
+    layer pairs."""
     what = _unported_family(cfg) or (
         "local_global" if cfg.local_global else None)
     if what is not None:
@@ -42,8 +40,9 @@ def check_ported(cfg: "ModelConfig") -> None:
 class ModelConfig:
     """Architecture hyper-parameters (decoder-only LM backbone).
 
-    ``family`` drives block selection in the reference: dense, moe, ssm,
-    hybrid, vlm, audio. The port runs ``PORTED_FAMILIES`` (``check_ported``).
+    ``family`` drives block selection: dense, moe, ssm, hybrid, vlm,
+    audio. The port runs ``PORTED_FAMILIES`` (``check_ported``); an moe
+    config's blocks take a mixture of experts in place of the MLP.
     """
 
     name: str
@@ -125,9 +124,9 @@ class ModelConfig:
         return self.d_ff if self.d_ff else 4 * self.d_model
 
     def _dense_formula(self, what: str) -> None:
-        """The quantities below are the reference's dense formulas, which
-        hold for the ported families (local_global configs count the same);
-        an MoE, SSM or hybrid config raises, naming its ROADMAP item."""
+        """The quantities below are the reference's formulas for the ported
+        families (local_global configs count the same); an SSM or hybrid
+        config raises, naming its ROADMAP item."""
         fam = _unported_family(self)
         if fam is not None:
             raise NotImplementedError(
@@ -135,21 +134,31 @@ class ModelConfig:
                 f"{UNPORTED.get(fam, 'A6')}")
 
     def param_count(self) -> int:
-        """Analytic parameter count."""
+        """Analytic parameter count: an MoE layer holds every expert, the
+        router and the shared expert."""
         self._dense_formula("param_count")
         D, F, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
         H, KV, hd = self.num_heads, self.num_kv_heads, self.head_dim
         embed = V * D
         lm_head = 0 if self.tie_embeddings else V * D
         attn = D * (H * hd) + 2 * D * (KV * hd) + (H * hd) * D
-        per_layer = attn + 3 * D * F + 2 * D
+        mlp = 3 * D * F
+        if self.is_moe:
+            mlp = mlp * self.num_experts + D * self.num_experts  # + router
+            if self.shared_expert:
+                mlp += 3 * D * F
+        per_layer = attn + mlp + 2 * D
         return embed + lm_head + L * per_layer + D
 
     def active_param_count(self) -> int:
-        """Parameters touched per token: every one in the ported families
-        (the reference counts only the routed experts of an MoE config)."""
-        self._dense_formula("active_param_count")
-        return self.param_count()
+        """Parameters touched per token: an MoE config counts only its
+        ``num_experts_per_tok`` routed experts a layer."""
+        if not self.is_moe:
+            return self.param_count()
+        D, F, L = self.d_model, self.d_ff, self.num_layers
+        all_expert = L * (3 * D * F) * self.num_experts
+        active_expert = L * (3 * D * F) * self.num_experts_per_tok
+        return self.param_count() - all_expert + active_expert
 
     def kv_bytes_per_token(self, bytes_per_el: int = 2) -> int:
         """KV-cache bytes per token across all layers (ported families)."""

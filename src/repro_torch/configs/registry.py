@@ -9,6 +9,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.granite_3_8b import CONFIG as _granite
 from repro_torch.configs.internvl2_2b import CONFIG as _internvl2
 from repro_torch.configs.llama3_1_8b import CONFIG as _llama
+from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as _scout
+from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
 from repro_torch.configs.musicgen_large import CONFIG as _musicgen
 from repro_torch.configs.qwen1_5_0_5b import CONFIG as _qwen
 
@@ -18,6 +20,8 @@ REGISTRY: Dict[str, ModelConfig] = {
     "llama3.1-8b": _llama,
     "internvl2-2b": _internvl2,
     "musicgen-large": _musicgen,
+    "mixtral-8x22b": _mixtral,
+    "llama4-scout-17b-a16e": _scout,
 }
 
 

@@ -45,7 +45,8 @@ recompute. The execution path copies every matched block still on the host
 to the device on the engine's stream before a forward reads it
 (``_match_restoring``); a route-time ``prefetch_prefix`` does the same
 ahead of the step, on a side stream of a ``kv-prefetch`` thread that holds
-``compiled.capture_lock`` so that it never runs beside a capture. The
+``compiled.capture_lock`` so that it never runs beside a capture; the step
+that runs the request joins its prefetch before its forward. The
 engine pins its host tier's memory when it is made
 (``_reserve_host_memory``), so that no step pays for growing it. The
 engine's steps run on the device's default stream (the current stream of a
@@ -147,9 +148,10 @@ class EngineConfig:
 
 
 class PrefillOnlyEngine:
-    """Single-instance engine over a dense, vlm or audio model, fed token
-    ids as the reference's engine feeds every family (real tensors on
-    ``device``: ``"cuda"`` by default, ``"cpu"`` only when asked for)."""
+    """Single-instance engine over a dense, vlm, audio or moe model (the
+    families the reference's engine serves), fed token ids as the
+    reference's engine feeds every family (real tensors on ``device``:
+    ``"cuda"`` by default, ``"cpu"`` only when asked for)."""
 
     def __init__(self, cfg: ModelConfig, params: Dict,
                  ecfg: Optional[EngineConfig] = None,
@@ -214,6 +216,9 @@ class PrefillOnlyEngine:
         # the prefetch's host-to-device copies
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if cuda and ecfg.offload else None)
+        # the kv-prefetch thread started for each request id, joined by the
+        # step that runs the request (_await_prefetches)
+        self._prefetches: Dict[int, threading.Thread] = {}
         if cuda and ecfg.offload:
             with _compiled.device_lock:
                 self._reserve_host_memory()
@@ -554,18 +559,38 @@ class PrefillOnlyEngine:
         them into the device tier under the lock, then copies their
         payloads to the device outside it (``_prefetch_worker``); the
         episode emits the ``prefetch`` span (on ``rid``'s timeline) and
-        series."""
+        series. The step that runs ``rid`` joins the thread before its
+        forward matches the cache (``_await_prefetches``)."""
         c = self.cache
         if not isinstance(c, TieredPrefixCache):
             return 0
+        th = threading.Thread(target=self._prefetch_worker,
+                              args=(tuple(chain), rid),
+                              daemon=True, name="kv-prefetch")
         with self.lock:
             est = c.restore_estimate(chain)
-        if not est["blocks"]:
-            return 0
-        threading.Thread(target=self._prefetch_worker,
-                         args=(tuple(chain), rid),
-                         daemon=True, name="kv-prefetch").start()
+            if not est["blocks"]:
+                return 0
+            if rid is not None:
+                self._prefetches = {k: t for k, t in self._prefetches.items()
+                                    if t.is_alive()}
+                self._prefetches[rid] = th
+        th.start()
         return int(est["blocks"])
+
+    def _await_prefetches(self, batch: List[Request]) -> None:
+        """Join the prefetches started for ``batch``'s requests. The
+        execute path then copies no block a prefetch is still copying, and
+        each prefetch episode lands on its request's timeline before the
+        request finishes (a span reported after it would be lost). Called
+        without the engine lock, which the prefetch takes; the prefetch's
+        ``capture_lock`` is free, since every capture holds
+        ``device_lock``, as the calling step does."""
+        with self.lock:
+            pending = [self._prefetches.pop(r.req_id) for r in batch
+                       if r.req_id in self._prefetches]
+        for th in pending:
+            th.join()
 
     def _prefetch_worker(self, chain: Tuple[int, ...],
                          rid: Optional[int]) -> None:
@@ -616,6 +641,7 @@ class PrefillOnlyEngine:
         batch = self._form_batch(now)
         if batch is None:
             return None
+        self._await_prefetches(batch)
         for r in batch:
             r.start_time = now
         with self.lock:

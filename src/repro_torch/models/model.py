@@ -1,5 +1,5 @@
 """Model API: one object per config of the port's families (dense, vlm,
-audio; ``configs.base.check_ported``).
+audio, moe; ``configs.base.check_ported``).
 
 Port of ``repro.models.model``'s ``ModelAPI`` and ``build``:
 
@@ -45,8 +45,10 @@ def _train_loss(*args, **kwargs):
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
-    """The API of a dense, vlm or audio config; other families and
-    local_global configs raise, naming their ROADMAP items."""
+    """The API of a dense, vlm, audio or moe config (an moe config's decode
+    runs its experts on each step's tokens, and a sliding window's cache is
+    a ring); other families and local_global configs raise, naming their
+    ROADMAP items."""
     check_ported(cfg)
     dtype = L.torch_dtype(cfg.dtype)
 

@@ -1,9 +1,11 @@
-"""Parameter trees of the transformer (dense, vlm and audio families): seeded
-init and a numpy bridge.
+"""Parameter trees of the transformer (dense, vlm, audio and moe families):
+seeded init and a numpy bridge.
 
 The tree is the reference's (``repro.models.transformer.model_defs``):
 ``embed/tok`` (V, D); ``blocks/{ln1, ln2, attn/{wq, wk, wv, wo, bq, bk, bv},
-mlp/{w_gate, w_up, w_down}}`` stacked with a leading layer axis;
+mlp/{w_gate, w_up, w_down}}`` stacked with a leading layer axis, where an
+moe config has ``moe/{router, w_gate, w_up, w_down, shared/*}``
+(``models.moe.moe_defs``) in place of ``mlp``;
 ``final_norm`` (D,); ``lm_head`` (D, V) when embeddings are untied.
 Initializers follow ``repro.runtime.sharding.materialize``: zeros for norms
 and biases, normal/sqrt(fan_in) for "scaled" matrices, normal*0.02 for the
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, check_ported
 from repro_torch.models.layers import torch_dtype
+from repro_torch.models.moe import moe_defs
 from repro_torch.runtime.device import DeviceLike, resolve_device
 
 # path -> (shape, init); init is "zeros", "scaled" or "normal" (std 0.02)
@@ -42,9 +45,13 @@ def param_defs(cfg: ModelConfig) -> ParamDefs:
         block[("attn", "bq")] = ((H * hd,), "zeros")
         block[("attn", "bk")] = ((KV * hd,), "zeros")
         block[("attn", "bv")] = ((KV * hd,), "zeros")
-    block[("mlp", "w_gate")] = ((D, F), "scaled")
-    block[("mlp", "w_up")] = ((D, F), "scaled")
-    block[("mlp", "w_down")] = ((F, D), "scaled")
+    if cfg.is_moe:
+        for path, spec in moe_defs(cfg).items():
+            block[("moe",) + path] = spec
+    else:
+        block[("mlp", "w_gate")] = ((D, F), "scaled")
+        block[("mlp", "w_up")] = ((D, F), "scaled")
+        block[("mlp", "w_down")] = ((F, D), "scaled")
     defs: ParamDefs = {("embed", "tok"): ((V, D), "normal")}
     for path, (shape, init) in block.items():
         defs[("blocks",) + path] = ((Ln,) + shape, init)

@@ -1,19 +1,23 @@
-"""Decoder-only transformer, dense blocks: the PrefillOnly serving forwards.
+"""Decoder-only transformer: the PrefillOnly serving forwards.
 
 Port of ``repro.models.transformer``'s ``head_weight``, ``forward_full``
 (with ``embeds``, ``kv_keep``, ``positions``, ``seg_ids`` and
 ``kv_indices``), ``prefill``, ``prefill_packed``, ``prefill_with_prefix``,
-``prefill_packed_with_prefix``, and the dense branches of ``init_cache``,
-``_block_decode`` and ``decode_step`` (one token against a KV cache, ring
-caches for sliding windows), for the dense, vlm and audio families
+``prefill_packed_with_prefix``, and the dense and MoE branches of
+``init_cache``, ``_block_decode`` and ``decode_step`` (one token against a
+KV cache, ring caches for sliding windows), for the dense, vlm, audio and
+moe families
 (``configs.base.check_ported``). ``forward_full``, ``prefill`` and
 ``prefill_with_prefix`` take precomputed embeddings (``embeds`` (B, S, D),
 cast to the model dtype) in place of token ids, as the reference's do; the
 packed forwards and ``decode_step`` take token ids only, as there.
 Parameters keep the reference's stacked tree (``blocks/*`` with a leading
 layer axis, ``embed/tok``, ``final_norm``; see ``models/params.py``), and
-the layer scan becomes a Python loop over layers. The local_global (gemma2),
-MoE and fp8-weight branches come with later slices.
+the layer scan becomes a Python loop over layers. An moe config's blocks
+run ``models.moe.moe_apply`` in place of the MLP (``_ffn``): the prefill
+forwards dispatch ``hybrid_chunk`` tokens at a time, decode all of a step's
+tokens at once, as the reference does. The local_global (gemma2) and
+fp8-weight branches come with later slices.
 
 KV payloads keep the reference layout: (L, B, keep, KV, hd). The packed
 forwards return per-segment logits and the fresh KV gathered at
@@ -30,6 +34,7 @@ from repro_torch.configs.base import ModelConfig, check_ported
 from repro_torch.core.hybrid_prefill import (chunked_map, last_token_logits,
                                              packed_last_logits)
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.runtime.device import DeviceLike, resolve_device
 
 
@@ -58,6 +63,22 @@ def layer_params(blocks: Dict, layer: int) -> Dict:
             for k, v in blocks.items()}
 
 
+def mlp_layers(cfg: ModelConfig) -> int:
+    """Layers whose block runs the MLP (``layers.mlp_apply``, the fused MLP
+    kernel): every layer of a dense config; at an moe config the layers
+    with a shared expert, every one or none (``_ffn``)."""
+    return cfg.num_layers if not cfg.is_moe or cfg.shared_expert else 0
+
+
+def _ffn(bp: Dict, h: torch.Tensor, cfg: ModelConfig,
+         chunk: int) -> torch.Tensor:
+    """The block's feed-forward: the mixture of experts of an moe config,
+    else the MLP; both chunked under hybrid prefilling."""
+    if cfg.is_moe:
+        return M.moe_apply(bp["moe"], h, cfg, hybrid_chunk=chunk)
+    return L.mlp_apply(bp["mlp"], h, chunk=chunk)
+
+
 def _block_full(bp: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor, window: int, chunk: int,
                 seg_ids: Optional[torch.Tensor] = None):
@@ -73,7 +94,7 @@ def _block_full(bp: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     x += attn
     del attn
     h = L.rms_norm(x, bp["ln2"])
-    x += L.mlp_apply(bp["mlp"], h, chunk=chunk)
+    x += _ffn(bp, h, cfg, chunk)
     return x, (k, v)
 
 
@@ -209,7 +230,7 @@ def prefill_with_prefix(params: Dict, cfg: ModelConfig, batch: Dict,
         out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
         x = x + out @ bp["attn"]["wo"]
         h = L.rms_norm(x, bp["ln2"])
-        x = x + L.mlp_apply(bp["mlp"], h, chunk=chunk)
+        x = x + _ffn(bp, h, cfg, chunk)
         kv["k"][layer].copy_(k[:, :keep_new])
         kv["v"][layer].copy_(v[:, :keep_new])
     hidden = L.rms_norm(x, params["final_norm"])
@@ -345,7 +366,7 @@ def prefill_packed_with_prefix(params: Dict, cfg: ModelConfig,
         out = out.reshape(B, S, H * hd)
         x = x + chunked_map(lambda oc: oc @ bp["attn"]["wo"], out, chunk)
         h = L.rms_norm(x, bp["ln2"])
-        x = x + L.mlp_apply(bp["mlp"], h, chunk=chunk)
+        x = x + _ffn(bp, h, cfg, chunk)
         if kv is not None:
             kv["k"][layer].copy_(k.index_select(1, kv_indices))
             kv["v"][layer].copy_(v.index_select(1, kv_indices))
@@ -386,7 +407,7 @@ def _block_decode(bp: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                                     k_cache=kc, v_cache=vc, ring=ring)
     x = x + attn
     h = L.rms_norm(x, bp["ln2"])
-    return x + L.mlp_apply(bp["mlp"], h)
+    return x + _ffn(bp, h, cfg, 0)
 
 
 def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,

@@ -40,6 +40,7 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_mlp as fm
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.models import transformer as ttfm
 from repro_torch.models.params import init_params
 
 pytestmark = pytest.mark.cuda
@@ -418,7 +419,7 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev, cfg=None):
             res.append(eng.results[rid])
         used = tuple(a - b for a, b in zip(
             (rn.launches, fa.launches, fm.launches), n0))
-        per = (2 * cfg.num_layers + 1, cfg.num_layers, cfg.num_layers)
+        per = (2 * cfg.num_layers + 1, cfg.num_layers, ttfm.mlp_layers(cfg))
         assert used == (tuple(len(trace) * p for p in per)
                         if device == dev else (0, 0, 0))
         out[str(device)] = res
@@ -457,7 +458,7 @@ def test_packed_engine_on_the_card_matches_the_cpu_engine(dev, cfg=None):
             res += [eng.results[i] for i in ids]
         used = tuple(a - b for a, b in zip(
             (rn.launches, fa.launches, fm.launches), n0))
-        per = (2 * cfg.num_layers + 1, cfg.num_layers, cfg.num_layers)
+        per = (2 * cfg.num_layers + 1, cfg.num_layers, ttfm.mlp_layers(cfg))
         assert used == (tuple(eng.forwards * p for p in per)
                         if device == dev else (0, 0, 0))
         kinds = {r.kind for r in eng.batch_records if r.n_requests > 1}
@@ -706,7 +707,7 @@ def test_decode_chain_on_the_card_matches_the_cpu(dev, window,
         used = tuple(a - b for a, b in zip(
             (rn.launches, da.launches, fm.launches, fa.launches), n0))
         L_ = cfg.num_layers
-        assert used == (2 * L_ + 1, L_, L_, 0)
+        assert used == (2 * L_ + 1, L_, ttfm.mlp_layers(cfg), 0)
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
     for name in ("k", "v"):
         torch.testing.assert_close(caches["gpu"][name].cpu(),
@@ -1095,3 +1096,76 @@ def test_two_instance_serve_trace_on_the_card(dev):
     for o, w in zip(out["outcomes"], want):
         assert not isinstance(o, Rejected)
         assert max(abs(o["scores"][t] - w[t]) for t in (5, 9)) < 2e-2
+
+
+# ---- the MoE family -------------------------------------------------------------
+MOE_ARCHS = ("mixtral-8x22b", "llama4-scout-17b-a16e")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_apply_in_a_cuda_graph_equals_its_eager_run(dev, arch, dtype):
+    """``moe_apply`` at the reduced config (d_model 128, 4 experts), 160
+    tokens in chunks of 64 (the last one short): warmed up under
+    ``set_sync_debug_mode("error")`` (a host sync raises), captured in a
+    CUDA graph, replayed on new inputs: the replay equals an eager run on
+    the same inputs bit for bit, routes and all; the eager run on the card
+    routes as the CPU does at float32 and is within 1e-4 of it."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    name = str(dtype).split(".")[1]
+    cfg = reduce_config(get_config(arch), dtype=name, param_dtype=name)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p = _to(tfm.layer_params(params["blocks"], 1)["moe"], dev)
+    xs = [_randn(dev, 2, 80, cfg.d_model, dtype=dtype, seed=s)
+          for s in range(2)]
+    static = xs[0].clone()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            moe.moe_apply(p, static, cfg, hybrid_chunk=64)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = moe.moe_apply(p, static, cfg, hybrid_chunk=64)
+    for x in reversed(xs):
+        static.copy_(x)
+        graph.replay()
+        with moe.record_routes() as rec:
+            want = moe.moe_apply(p, x, cfg, hybrid_chunk=64)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert len(rec) == 1 and rec[0]["capacity"] == [
+        moe._capacity(64, cfg)] * 3
+    if dtype == torch.float32:
+        with moe.record_routes() as cpu_rec:
+            cpu = moe.moe_apply(_to(p, "cpu"), xs[0].cpu(), cfg,
+                                hybrid_chunk=64)
+        assert torch.equal(rec[0]["experts"].cpu(), cpu_rec[0]["experts"])
+        assert torch.equal(rec[0]["keep"].cpu(), cpu_rec[0]["keep"])
+        _close(want.cpu(), cpu, dtype)
+
+
+@pytest.mark.parametrize("check", [
+    test_engine_on_the_card_matches_the_cpu_engine,
+    test_packed_engine_on_the_card_matches_the_cpu_engine,
+], ids=["solo", "packed"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_engines_on_the_card_at_the_moe_configs(dev, arch, check):
+    """Both engines at the reduced MoE configs in float32 (in bf16 a route
+    flip between the card and the CPU would move a whole row): the
+    CUDA-core kernels and the experts' products through CUDA graphs."""
+    check(dev, cfg=reduce_config(get_config(arch), hybrid_chunk=0,
+                                 dtype="float32", param_dtype="float32"))
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_decode_chain_on_the_card_at_the_moe_configs(dev, arch):
+    """The decode chain at the reduced MoE configs, mixtral's through a
+    16-slot ring (its reduced window) that the 20 steps wrap."""
+    window = reduce_config(get_config(arch)).sliding_window
+    test_decode_chain_on_the_card_matches_the_cpu(dev, window, arch=arch)

@@ -2,12 +2,18 @@
 JAX package's, plus the port's package rules.
 
 The engines run the reduced qwen1.5-0.5b, granite-3-8b, llama3.1-8b,
-internvl2-2b (vlm) and musicgen-large (audio) configs (the ``setup``
-fixture's params; granite and llama have 4 query heads per kv head,
-internvl2 2, musicgen none shared, and no qkv bias; the last three an
-untied LM head) in bfloat16 on bridged weights; scores are held to the repo's
-2e-2 engine gate (the same gate ``tests/test_engine.py`` holds hit scores
-to against a cold engine).
+internvl2-2b (vlm), musicgen-large (audio), mixtral-8x22b and
+llama4-scout-17b-a16e (moe) configs (the ``setup`` fixture's params;
+granite and llama have 4 query heads per kv head, internvl2 2, musicgen
+none shared, and no qkv bias; the last five an untied LM head) on bridged
+weights, in bfloat16, the MoE configs in float32 (a bf16 route flip may
+move a whole row; ``tests/test_torch_moe.py`` holds the MoE layer in
+bf16); scores are held to the repo's 2e-2 engine gate (the same gate
+``tests/test_engine.py`` holds hit scores to against a cold engine). MoE
+capacity is priced per forward call, so a hit, which routes only its
+suffix, may drop other assignments than a cold run (ROADMAP §C17, a
+behaviour of the reference): at the MoE configs the hit-vs-cold gap is held
+to the reference engines' gap on the same requests, not to 0.
 """
 import ast
 import os
@@ -41,13 +47,15 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 SCORE_GATE = 2e-2
 YES, NO = 5, 9
 ARCHS = ("qwen1.5-0.5b", "granite-3-8b", "llama3.1-8b", "internvl2-2b",
-         "musicgen-large")
+         "musicgen-large", "mixtral-8x22b", "llama4-scout-17b-a16e")
 
 
 @pytest.fixture(scope="module", params=ARCHS)
 def setup(request):
-    jcfg = j_reduce_config(j_get_config(request.param), hybrid_chunk=0)
-    tcfg = reduce_config(get_config(request.param), hybrid_chunk=0)
+    dt = "float32" if get_config(request.param).is_moe else "bfloat16"
+    over = dict(hybrid_chunk=0, dtype=dt, param_dtype=dt)
+    jcfg = j_reduce_config(j_get_config(request.param), **over)
+    tcfg = reduce_config(get_config(request.param), **over)
     jparams = materialize(jax.random.PRNGKey(0), build(jcfg).defs(),
                           jnp.float32)
     tree = jax.tree_util.tree_map(np.asarray, jparams)
@@ -87,22 +95,37 @@ def test_engine_matches_reference_miss_then_hit(setup):
 
 
 def test_hit_scores_match_cold_engine(setup):
-    _, tcfg, _, tparams = setup
+    """A hit scores as a cold engine does; at an MoE config, the hit-vs-cold
+    gap equals the reference engines' on the same requests (§C17)."""
+    jcfg, tcfg, jparams, tparams = setup
     rng = np.random.default_rng(1)
     profile = rng.integers(0, tcfg.vocab_size, 80).tolist()
     post = rng.integers(0, tcfg.vocab_size, 20).tolist()
+    reqs = [profile + [3] * 20, profile + post]
     warm = PrefillOnlyEngine(tcfg, tparams,
                              EngineConfig(cache_capacity_tokens=2048),
                              device="cpu")
-    hit = _serve(warm, [profile + [3] * 20, profile + post])[1]
+    hit = _serve(warm, reqs)[1]
     assert hit["n_cached"] > 0
     cold = PrefillOnlyEngine(tcfg, tparams,
                              EngineConfig(cache_capacity_tokens=0),
                              device="cpu")
     ref = _serve(cold, [profile + post])[0]
     assert ref["n_cached"] == 0
+    want_gap = dict.fromkeys((YES, NO), 0.0)
+    if tcfg.is_moe:
+        jhit = _serve(jengine.PrefillOnlyEngine(
+            jcfg, jparams, jengine.EngineConfig(cache_capacity_tokens=2048)),
+            reqs)[1]
+        jcold = _serve(jengine.PrefillOnlyEngine(
+            jcfg, jparams, jengine.EngineConfig(cache_capacity_tokens=0)),
+            reqs[1:])[0]
+        assert jhit["n_cached"] == hit["n_cached"]
+        want_gap = {t: jhit["scores"][t] - jcold["scores"][t]
+                    for t in (YES, NO)}
     for t in (YES, NO):
-        assert abs(ref["scores"][t] - hit["scores"][t]) < SCORE_GATE
+        gap = hit["scores"][t] - ref["scores"][t]
+        assert abs(gap - want_gap[t]) < SCORE_GATE
     assert abs(sum(hit["scores"].values()) - 1.0) < 1e-6
 
 

@@ -1,10 +1,12 @@
-"""The port's dense, vlm and audio families on the CPU, beside the model,
-engine, packed and decode twins that run llama3.1-8b, internvl2-2b and
-musicgen-large at their reduced widths (``tests/test_torch_{model,engine,
-packed,decode}.py``): what those twins do not hold.
+"""The port's dense, vlm, audio and moe families on the CPU, beside the
+model, engine, packed and decode twins that run llama3.1-8b, internvl2-2b,
+musicgen-large, mixtral-8x22b and llama4-scout-17b-a16e at their reduced
+widths (``tests/test_torch_{model,engine,packed,decode}.py``) and the MoE
+layer's twins (``tests/test_torch_moe.py``): what those twins do not hold.
 
-- Each config's published widths, parameter count and KV bytes a token,
-  by hand, and its full-width tree's shapes against the reference's.
+- Each config's published widths, parameter count, active parameter count
+  (only the routed experts of an MoE config) and KV bytes a token, by
+  hand, and its full-width tree's shapes against the reference's.
 - Precomputed ``embeds`` in place of token ids (the vlm's input) through
   ``build(cfg).prefill`` and ``prefill_with_prefix``, against the JAX
   package at the reduced internvl2-2b and musicgen-large configs (4
@@ -15,7 +17,7 @@ packed,decode}.py``): what those twins do not hold.
   Tolerances (|port - reference| <= atol + rtol |reference|): float32
   1e-4 (summation order only); bfloat16 5e-2, as ``tests/test_torch_
   packed.py`` and ``tests/test_packed_prefill.py`` hold bf16 forwards.
-- Families the port does not run (MoE, local_global, SSM, hybrid) raise at
+- Families the port does not run (local_global, SSM, hybrid) raise at
   the engine, the model API and ``param_defs``, naming their ROADMAP items.
 - The launcher builds a pool of the paper's model at reduced width.
 """
@@ -48,15 +50,25 @@ TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        "bfloat16": dict(atol=5e-2, rtol=5e-2)}
 YES, NO = 5, 9
 # the published widths, by hand: (L, D, heads, kv heads, head_dim, d_ff,
-# vocab, family, tied head, param_count, kv bytes a token in bf16)
+# vocab, family, tied head, param_count, active_param_count, kv bytes a
+# token in bf16)
 FULL = {
     "llama3.1-8b": (32, 4096, 32, 8, 128, 14_336, 128_256, "dense", False,
-                    8_030_261_248, 131_072),
+                    8_030_261_248, 8_030_261_248, 131_072),
     "internvl2-2b": (24, 2048, 16, 8, 128, 8192, 92_553, "vlm", False,
-                     1_889_146_880, 98_304),
+                     1_889_146_880, 1_889_146_880, 98_304),
     "musicgen-large": (48, 2048, 32, 32, 64, 8192, 2048, "audio", False,
-                       3_229_812_736, 393_216),
+                       3_229_812_736, 3_229_812_736, 393_216),
+    "mixtral-8x22b": (56, 6144, 48, 8, 128, 16_384, 32_768, "moe", False,
+                      140_630_071_296, 39_161_468_928, 229_376),
+    "llama4-scout-17b-a16e": (48, 5120, 40, 8, 128, 8192, 202_048, "moe",
+                              False, 107_769_861_120, 17_172_894_720,
+                              196_608),
 }
+# the MoE fields, by hand: (experts, experts a token, shared expert,
+# sliding window)
+MOE = {"mixtral-8x22b": (8, 2, False, 4096),
+       "llama4-scout-17b-a16e": (16, 1, True, 0)}
 
 
 def _configs(arch: str, dtype: str, chunk: int = 16):
@@ -117,12 +129,14 @@ def test_config_copy_and_quantities_match_reference(arch):
     tree's shapes the reference's (``tests/test_torch_model.py`` holds the
     configs equal field for field)."""
     full, ref = get_config(arch), j_get_config(arch)
-    L, D, H, KV, hd, F, V, family, tied, params, kv = FULL[arch]
+    L, D, H, KV, hd, F, V, family, tied, params, active, kv = FULL[arch]
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.head_dim, full.d_ff, full.vocab_size, full.family,
             full.tie_embeddings) == (L, D, H, KV, hd, F, V, family, tied)
+    assert (full.num_experts, full.num_experts_per_tok, full.shared_expert,
+            full.sliding_window) == MOE.get(arch, (0, 0, False, 0))
     assert full.param_count() == ref.param_count() == params
-    assert full.active_param_count() == ref.active_param_count() == params
+    assert full.active_param_count() == ref.active_param_count() == active
     assert full.kv_bytes_per_token() == ref.kv_bytes_per_token() == kv
     defs = param_defs(full)
     ref_defs = jax.tree_util.tree_leaves_with_path(
@@ -171,11 +185,10 @@ def test_embeds_input_matches_reference(model):
 # ---- gates and the launcher --------------------------------------------------
 
 @pytest.mark.parametrize("over,item", [
-    (dict(family="moe", num_experts=4, num_experts_per_tok=2), "MoE"),
     (dict(local_global=True), "local_global"),
     (dict(family="ssm"), "SSM and hybrid"),
     (dict(family="hybrid", attn_every=2), "SSM and hybrid")],
-    ids=["moe", "local_global", "ssm", "hybrid"])
+    ids=["local_global", "ssm", "hybrid"])
 def test_unported_families_raise_naming_their_roadmap_item(over, item):
     _, tcfg = _configs("llama3.1-8b", "float32")
     tparams = params_from_numpy(_arch_tree("llama3.1-8b"), tcfg, device="cpu")

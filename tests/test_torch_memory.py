@@ -5,8 +5,9 @@ behaviours (``tests/test_jct_and_policy.py``) on the H100.
 
 Configs are bridged field for field: the port's ``ModelConfig`` built from
 the reference's fields, for every dense config of the reference registry
-(llama3.1-8b included), and for the vlm and audio configs, which take the
-dense formulas. Chips the same way: a port ``ChipSpec`` equal to the
+(llama3.1-8b included), for the vlm and audio configs, which take the
+dense formulas, and for the moe configs, which count their experts, router
+and shared expert. Chips the same way: a port ``ChipSpec`` equal to the
 TPU v5e field for field, and a reference ``ChipSpec`` carrying the H100's
 constants, so both packages price both chips. Real numbers agree within
 rel 1e-12 (the copy runs the same float operations), integers exactly.
@@ -31,11 +32,13 @@ from repro_torch.runtime.hw import H100_SXM, ChipSpec
 REL = 1e-12
 DENSE = sorted(a for a, c in REGISTRY.items() if c.family == "dense")
 # the vlm and audio families run the dense formulas (internvl2-2b,
-# musicgen-large); MoE, SSM and hybrid configs raise
+# musicgen-large), the moe family the reference's MoE terms (mixtral-8x22b,
+# llama4-scout-17b-a16e); SSM and hybrid configs raise
 VLM_AUDIO = sorted(a for a, c in REGISTRY.items()
                    if c.family in ("vlm", "audio"))
+MOE = sorted(a for a, c in REGISTRY.items() if c.family == "moe")
 OTHER = sorted(a for a, c in REGISTRY.items()
-               if c.family not in ("dense", "vlm", "audio"))
+               if c.family not in ("dense", "vlm", "audio", "moe"))
 TECHNIQUES = ("paged", "chunked", "discard", "hybrid", "tp", "pp")
 LENGTHS = (0, 1, 1000, 16_384, 19_000, 60_000, 524_288)
 
@@ -134,6 +137,21 @@ def test_vlm_and_audio_memory_match_reference(arch):
     """The vlm and audio configs price as the reference prices them: the
     config quantities, every technique's peak, the MIL table and the
     prefix budgets, on both chips."""
+    _memory_matches_reference(arch)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_memory_matches_reference(arch):
+    """The moe configs price as the reference prices them (their parameter
+    counts hold every expert, their active counts the routed ones), with
+    the same checks as the vlm and audio configs'."""
+    assert REGISTRY[arch].is_moe
+    assert (REGISTRY[arch].active_param_count()
+            < REGISTRY[arch].param_count())
+    _memory_matches_reference(arch)
+
+
+def _memory_matches_reference(arch):
     ref = REGISTRY[arch]
     cfg = port_config(ref)
     assert cfg == get_config(arch)
@@ -157,7 +175,8 @@ def test_vlm_and_audio_memory_match_reference(arch):
 
 def test_the_port_registry_is_bridged():
     for arch in ("qwen1.5-0.5b", "granite-3-8b", "llama3.1-8b",
-                 "internvl2-2b", "musicgen-large"):
+                 "internvl2-2b", "musicgen-large", "mixtral-8x22b",
+                 "llama4-scout-17b-a16e"):
         assert port_config(REGISTRY[arch]) == get_config(arch)
 
 

@@ -8,9 +8,12 @@ Forwards are compared in float32 at the reduced qwen1.5-0.5b config, at
 the reduced granite-3-8b config (grouped-query attention: 4 query heads per
 kv head, no qkv bias), at granite reduced to head_dim 128 (d_model 256,
 8/2 heads), at the reduced llama3.1-8b config (4 query heads per kv
-head, an untied LM head) and at the reduced internvl2-2b (vlm: 2 query
-heads per kv head) and musicgen-large (audio: MHA) configs: logits and kept KV within 1e-4 (different summation orders over
-a 4-layer model with O(1) activations).
+head, an untied LM head), at the reduced internvl2-2b (vlm: 2 query
+heads per kv head) and musicgen-large (audio: MHA) configs, and at the
+reduced MoE configs mixtral-8x22b (4 experts, top-2, a 16-token sliding
+window) and llama4-scout-17b-a16e (4 experts, top-1, a shared expert):
+logits and kept KV within 1e-4 (different summation orders over a 4-layer
+model with O(1) activations; the MoE routes are equal at float32).
 """
 import dataclasses
 
@@ -23,6 +26,7 @@ import torch
 from repro.configs import get_config as j_get_config
 from repro.configs import reduce_config as j_reduce_config
 from repro.models import layers as jl
+from repro.models import moe as jmoe
 from repro.models import transformer as jtfm
 from repro.models.model import build
 from repro.runtime.sharding import materialize
@@ -36,7 +40,7 @@ from repro_torch.models.params import init_params, params_from_numpy
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCHS = ("qwen1.5-0.5b", "granite-3-8b", "llama3.1-8b", "internvl2-2b",
-         "musicgen-large")
+         "musicgen-large", "mixtral-8x22b", "llama4-scout-17b-a16e")
 # granite's head_dim, 4 query heads per kv head, at a CPU-test width
 HD128 = dict(d_model=256, num_heads=8, num_kv_heads=2, head_dim=128)
 
@@ -74,9 +78,11 @@ def _np(x) -> np.ndarray:
     (0, "qwen1.5-0.5b", {}), (16, "qwen1.5-0.5b", {}),
     (16, "granite-3-8b", {}), (0, "granite-3-8b", HD128),
     (16, "llama3.1-8b", {}), (16, "internvl2-2b", {}),
-    (16, "musicgen-large", {})],
+    (16, "musicgen-large", {}), (16, "mixtral-8x22b", {}),
+    (16, "llama4-scout-17b-a16e", {})],
     ids=["chunk0", "chunk16", "granite-chunk16", "granite-hd128-chunk0",
-         "llama-chunk16", "internvl2-chunk16", "musicgen-chunk16"])
+         "llama-chunk16", "internvl2-chunk16", "musicgen-chunk16",
+         "mixtral-chunk16", "scout-chunk16"])
 def model(request):
     chunk, arch, widths = request.param
     jcfg, tcfg = _configs(chunk, arch, **widths)
@@ -118,7 +124,9 @@ def test_init_params_tree_matches_reference_shapes():
         assert ("bq" in blocks["attn"]) == tcfg.qkv_bias
         if tcfg.qkv_bias:
             assert not blocks["attn"]["bq"].any()
-        std = blocks["mlp"]["w_gate"].std().item()
+        ffn = blocks["moe"] if tcfg.is_moe else blocks["mlp"]
+        assert ("moe" in blocks) == tcfg.is_moe != ("mlp" in blocks)
+        std = ffn["w_gate"].std().item()
         assert abs(std - tcfg.d_model ** -0.5) < 0.1 * tcfg.d_model ** -0.5
         again = init_params(tcfg, torch.Generator().manual_seed(0),
                             device="cpu")
@@ -162,13 +170,19 @@ def test_qkv_project_matches_reference(model):
 
 
 def test_mlp_apply_matches_reference(model):
+    """The block's feed-forward: the MLP, or an MoE config's experts."""
     jcfg, tcfg, jparams, tparams = model
     rng = np.random.default_rng(2)
     x = rng.standard_normal((1, 40, tcfg.d_model)).astype(np.float32)
-    jp = jax.tree_util.tree_map(lambda a: a[0], jparams["blocks"]["mlp"])
-    tp = ttfm.layer_params(tparams["blocks"], 0)["mlp"]
-    want = jl.mlp_apply(jp, jnp.asarray(x), chunk=jcfg.hybrid_chunk)
-    got = tl.mlp_apply(tp, torch.from_numpy(x), chunk=tcfg.hybrid_chunk)
+    name = "moe" if tcfg.is_moe else "mlp"
+    jp = jax.tree_util.tree_map(lambda a: a[0], jparams["blocks"][name])
+    tp = ttfm.layer_params(tparams["blocks"], 0)
+    if tcfg.is_moe:
+        want = jmoe.moe_apply(jp, jnp.asarray(x), jcfg,
+                              hybrid_chunk=jcfg.hybrid_chunk)
+    else:
+        want = jl.mlp_apply(jp, jnp.asarray(x), chunk=jcfg.hybrid_chunk)
+    got = ttfm._ffn(tp, torch.from_numpy(x), tcfg, tcfg.hybrid_chunk)
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
 
 

@@ -31,6 +31,7 @@ from repro_torch.core.engine import EngineConfig, PrefillOnlyEngine
 from repro_torch.core.prefix_cache import token_chain
 from repro_torch.models.params import params_from_numpy
 from repro_torch.runtime.hw import H100_SXM
+from repro_torch.serving.tracing import SpanTracer
 
 SCORE_GATE = 2e-2
 YES, NO = 5, 9
@@ -480,3 +481,37 @@ def test_prefetch_waits_for_a_capture(setup):
     _join_prefetch()
     assert eng.cache.restored_blocks == r0 + n
     assert eng.cache.match_tiers(chain) == ["device"] * n
+
+
+def test_step_joins_its_requests_prefetch(setup):
+    """The step that runs a request joins the prefetch started for it, so
+    the execute path restores nothing the prefetch restores, and the
+    ``prefetch`` span lands on the request's timeline before it finishes.
+    The prefetch is held back (``capture_lock``) until the step waits."""
+    _, tcfg, _, _ = setup
+    toks = np.random.default_rng(14).integers(0, tcfg.vocab_size, 40).tolist()
+    eng = _engines(setup)[1]
+    _serve(eng, [toks])
+    _serve(eng, _flood(15, tcfg.vocab_size))
+    tracer = SpanTracer()
+    eng.bind_telemetry(tracer=tracer)
+    chain = token_chain(toks, 16)
+    r0 = eng.cache.restored_blocks
+    rid = eng.submit(toks, allowed_tokens=(YES, NO), now=500.0)
+    ctx = tracer.begin(rid=rid)
+    stepper = threading.Thread(target=eng.step)
+    with compiled.capture_lock:
+        n = eng.prefetch_prefix(chain, rid=rid)
+        assert n > 0
+        stepper.start()
+        stepper.join(timeout=0.5)
+        assert stepper.is_alive() and rid not in eng.results
+    stepper.join(timeout=60)
+    assert not stepper.is_alive()
+    tracer.finish(ctx, "delivered")
+    _join_prefetch()
+    spans = {s["name"] for r in tracer.snapshot() if rid in r["rids"]
+             for s in r["spans"]}
+    assert "prefetch" in spans and "restore" not in spans
+    assert eng.cache.restored_blocks == r0 + n
+    assert eng.results[rid]["n_cached"] > 0
