@@ -43,7 +43,23 @@ at the model's own widths and shapes, and prints each phase's seconds:
 - llama4-scout-17b-a16e (moe: every published width, 8 of 48 layers; 16
   experts of d_ff 8,192, top-1, a shared expert, 40/8 heads, G 5): phase
   2's rows at D 5120 and G 5 (the shared expert's MLP at F 8,192), phases
-  3-5 and phase 7's chain.
+  3-5 and phase 7's chain;
+- phi3-mini-3.8b (dense: 32 layers, d_model 3072, 32 MHA heads of 96,
+  d_ff 8,192, an untied head): phase 2's rows at head_dim 96 (every
+  attention mode, flash decoding at G 1) and at D 3072, phases 3-5, phase
+  7's chain and its depth run at S 8,192, and phase 8's peak ladder;
+- gemma2-9b (local_global: 42 layers in 21 (local, global) pairs, d_model
+  3584, 16/8 heads of 256, d_ff 14,336, a 4096-token window on the local
+  layers, attention softcap 50, final softcap 30, a tied 256,000-token
+  head): phase 2's rows at head_dim 256 with the softcap (causal S 8192 at
+  the window with its executed-tile map, a packed miss with a segment past
+  the window, the positioned mode as a kernel check, flash decoding over a
+  4096-slot ring and a full cache), phase 3 over the model API only
+  (``prefill`` at S 2048 and past the window, ``prefill_packed`` against
+  solo runs, the engine's refusal: ROADMAP C20), and phase 7's chain and
+  depth run through the ring/global cache pair. It has no engine phases:
+  the reference's engine cannot serve a local_global tree, so the port's
+  refuses it, and its main path is the model API's prefill and decode.
 
 At the MoE models random init overfills the experts, so a bf16 rounding
 flip of the router would move other tokens' slots and drops and cascade
@@ -423,8 +439,9 @@ class Spec(typing.NamedTuple):
     the vocabulary), the layers drawn (0: the published depth), extra
     packed attention cases (label, suffix lengths, S, prefix lengths or
     None, pmax, window), whether phase 8 runs its 60,000-token
-    requests, roofline fit and traces after the peak ladder, and the
-    decode chain's batch and prefix length. A kernel
+    requests, roofline fit and traces after the peak ladder, the
+    decode chain's batch and prefix length, and the depth run's cache
+    slots. A kernel
     whose row phase (ROW_PHASE) the model does not run takes its row from
     an earlier model at the same shape (row_models); a kernel its path
     does not run (the MLP of an MoE model without a shared expert) has
@@ -451,6 +468,7 @@ class Spec(typing.NamedTuple):
     extra_packed: tuple = ()
     long_request: bool = True
     dec_cons: tuple = (DEC_CONS_B, DEC_PREFIX)
+    dec_s: int = DEC_S
 
 
 # qwen1.5-0.5b, the earlier slices' model. Its extra cases cover the
@@ -580,7 +598,50 @@ SCOUT = Spec("llama4-scout-17b-a16e", plens=(512, 384, 256, 512),
              norm_ts=(8, 128, 512, 2048), extra_attn=(), extra_dec=(),
              phases=ROW_PHASES + ("forwards", "solo", "packed", "decode"),
              eager_ms={}, long_lens=(), depth=8)
-SPECS = (QWEN, GRANITE, LLAMA, INTERNVL2, MUSICGEN, MIXTRAL, SCOUT)
+# phi3-mini-3.8b at full width and its published 32 layers (7.6 GB of
+# weights): 32 MHA heads of 96 (G 1: the GEMV decode kernel), d_model 3072,
+# d_ff 8,192, an untied head. Phase 2's rows at its new shapes, phases 3-5
+# through the engine's four forwards, the decode chain and a depth run of
+# 8 x 8,192 slots (393,216 bytes of KV a token, 3x llama's: 25.8 GB; 8 x
+# 32,768 would be 103 GB), and phase 8's peak ladder.
+PHI3 = Spec("phi3-mini-3.8b", plens=(512, 384, 256, 512),
+            slens=(128, 96, 160, 128), pmax=512, hit_s=512, hit_nb=2,
+            hit_pmax=0, dec_b=8, mlp_ts=(512, 8, 128, 2048), norm_t=2048,
+            norm_ts=(8, 128, 512, 2048), extra_attn=(), extra_dec=(),
+            phases=ROW_PHASES + ("forwards", "solo", "packed", "decode",
+                                 "decode_depth", "long"),
+            eager_ms={}, long_lens=(8192, 16384, 32768), long_request=False,
+            dec_s=8192)
+# gemma2-9b at full width and its published 42 layers (18.5 GB of weights:
+# 21 (local, global) pairs, 16/8 heads of 256, d_model 3584, d_ff 14,336,
+# a tied 256,000-token head). Phase 2 at head_dim 256 with its softcap of 50
+# (the base cases and the packed rows; beside them the causal S 2048 and
+# the window's S 8192 without the softcap, SDPA's yardsticks), the
+# window's shapes (causal S 8192 at window 4096 with its executed-tile map,
+# a packed miss with a segment past the window, flash decoding over a
+# 4096-slot ring), the model API's forwards (no engine: ROADMAP C20) and
+# the decode chain after 4,608 tokens, so the local rings overfill, and a
+# depth run of 8 x 16,384 slots (172,032 bytes of global KV a token:
+# 22.5 GB, beside 8 x 4,096 ring slots).
+GEMMA2 = Spec("gemma2-9b", plens=(512, 384, 256, 512),
+              slens=(128, 96, 160, 128), pmax=512, hit_s=512, hit_nb=2,
+              hit_pmax=0, dec_b=8, mlp_ts=(512, 8, 2048), norm_t=2048,
+              norm_ts=(8, 512, 2048),
+              extra_attn=(
+                  ("causal_2048_nocap", 1, 2048, 2048, 16, 8, 256, {}),
+                  ("window_8192", 1, 8192, 8192, 16, 8, 256,
+                   dict(window=4096, softcap=50.0)),
+                  ("window_8192_nocap", 1, 8192, 8192, 16, 8, 256,
+                   dict(window=4096))),
+              extra_dec=(("ring_4096", 8, 4096, 16, 8, 256, [6000] * 8,
+                          50.0),),
+              phases=ROW_PHASES + ("forwards", "decode", "decode_depth"),
+              eager_ms={}, long_lens=(),
+              extra_packed=(
+                  ("segmented", (5000, 2500, 600), 8192, None, 0, 4096),),
+              dec_cons=(1, 4608), dec_s=16384)
+SPECS = (QWEN, GRANITE, LLAMA, INTERNVL2, MUSICGEN, MIXTRAL, SCOUT, PHI3,
+         GEMMA2)
 # the MoE models: the plain path dispatches the kernel path's routes
 # (``taped_routes``), so that a bf16 rounding flip of its router, which at
 # random init (the experts overflow: up to 40% of mixtral's assignments
@@ -789,8 +850,14 @@ def run_model(torch, dev, spec: Spec):
     if not all(0 <= t < cfg.vocab_size for t in spec.answer):
         fail(f"{cfg.name}: answer ids {spec.answer} outside the "
              f"{cfg.vocab_size}-token vocabulary")
-    phase("forwards", check_full_prefill, torch, dev, cfg, params)
-    phase("forwards", check_packed_forwards, torch, dev, spec, cfg, params)
+    model_api = {}
+    if cfg.local_global:     # the model API is its main path (ROADMAP C20)
+        model_api = phase("forwards", check_local_global_forwards, torch,
+                          dev, cfg, params)
+    else:
+        phase("forwards", check_full_prefill, torch, dev, cfg, params)
+        phase("forwards", check_packed_forwards, torch, dev, spec, cfg,
+              params)
     phase("embeds", check_embeds, torch, dev, cfg, params)
     solo = phase("solo", run_engine, torch, dev, spec, cfg, params)
     packed = phase("packed", run_packed_engine, torch, dev, spec, cfg,
@@ -809,12 +876,13 @@ def run_model(torch, dev, spec: Spec):
     serving = phase(("serve_full_scale", "serve_packed_chaos",
                      "serve_offload", "serve_short"), run_serving, torch,
                     dev, spec, cfg, params)
-    paths = (solo, packed, decode, long, offload, serving)
+    paths = (solo, packed, decode, long, offload, serving, model_api)
     launches = {k: sum(p.get(k, 0) for p in paths)
                 for k in set().union(*paths)}
     print(f"{spec.arch}: main path launches (solo engine + packed engine + "
           f"decode chain and depth steps + long requests and replay + "
-          f"offload tier + serving plane): "
+          f"offload tier + serving plane + a local_global model's "
+          f"prefills): "
           f"{launches}; phases took "
           f"{time.perf_counter() - t0:.1f} s; seconds by phase {took}",
           flush=True)
@@ -989,6 +1057,8 @@ def check_kernels(torch, dev, spec: Spec):
     # miss's shape, q_offset the solo hit's
     H, KV, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     win = dict(window=cfg.sliding_window) if cfg.sliding_window else {}
+    if cfg.attn_softcap:                 # gemma2: every layer's softcap
+        win["softcap"] = cfg.attn_softcap
     cases = [c for c in (
         ("causal", 1, 512, 512, H, KV, d, dict(win)),
         ("causal_2048", 1, 2048, 2048, H, KV, d, dict(win)),
@@ -1304,6 +1374,8 @@ def check_packed_kernels(torch, dev, spec: Spec):
     if builds(fa.width_rule, cfg.head_dim, torch.float32):
         dtypes.insert(0, (torch.float32, F32_TOL))
     win = dict(window=cfg.sliding_window) if cfg.sliding_window else {}
+    if cfg.attn_softcap:                 # gemma2: every layer's softcap
+        win["softcap"] = cfg.attn_softcap
     out = {
         "flash_attention[segmented]": check_packed(
             torch, dev, cfg, gen, "segmented", SEG_S, SEG_S,
@@ -1378,9 +1450,10 @@ def check_packed(torch, dev, cfg, gen, label: str, Sq: int, Sk: int, ids,
                  f"tile rule")
     live = fa._live_mask(Sq, Sk, causal=True, window=window, q_offset=0,
                          kv_valid=None, device=dev, **ids)
+    softcap = kw.get("softcap", 0.0)
     report_limit(torch, name, got, want, ATTN_BF16_TOL,
                  attention_skips(torch, fa, q, k, v, live, want,
-                                 ATTN_BF16_TOL))
+                                 ATTN_BF16_TOL, softcap=softcap))
     pairs = int(live.sum().item()) * H
     nbytes = live_bytes(ids, Sq, H, KV, d)
     b_ms, b_by = bound(chip, 4.0 * d * pairs, nbytes)
@@ -1399,10 +1472,12 @@ def check_packed(torch, dev, cfg, gen, label: str, Sq: int, Sk: int, ids,
         ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, **ids, **kw)),
         plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, **ids, **kw)),
-        library_ms=time_ms(torch, library),
+        # SDPA has no softcap: no yardstick computes that function
+        library_ms=time_ms(torch, library) if not softcap else None,
         bound_ms=b_ms, bound_by=b_by,
-        shape=f"{desc} H={H} KV={KV} d={d} bf16, live pairs/head "
-              f"{pairs // H}, tiles run {ran}/{total}")
+        shape=f"{desc} H={H} KV={KV} d={d} bf16"
+              f"{f' softcap {softcap:g}' if softcap else ''}, live "
+              f"pairs/head {pairs // H}, tiles run {ran}/{total}")
     report(name, row)
     return row
 
@@ -2159,6 +2234,114 @@ def check_packed_forwards(torch, dev, spec: Spec, cfg, params) -> None:
                       positions=lay["positions"], seg_ids=lay["seg_ids"])
 
 
+LG_PREFILL_S = (2048, 6144)   # local_global prefill: within, past the window
+
+
+def check_local_global_forwards(torch, dev, cfg, params):
+    """Phase 3 at a local_global config (gemma2), whose main path is the
+    model API's (the reference's engine cannot serve it: ROADMAP C20):
+    ``prefill`` at each S of LG_PREFILL_S (the last past the local layers'
+    window, so they mask) through the kernels and through the plain
+    versions (logits held to the full-width limits; the kept KV of the
+    first 512 tokens printed for each (local, global) layer pair and held
+    to BF16_TOL at the first pair), 2L+1/L/L launches; ``prefill_packed``
+    (SEG_LENS in SEG_S slots) through the kernels against the plain
+    versions and against each segment's solo ``prefill``; and the engine's
+    refusal, naming C20. Returns the launches of the kernel-route
+    forwards."""
+    import numpy as np
+    from repro_torch.core.engine import PrefillOnlyEngine
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model import build
+    api = build(cfg)
+    rng = np.random.default_rng(SEED + 13)
+    total = {}
+
+    def counted(fn):
+        reset_launches()
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        step = read_launches()
+        for k, v in step.items():
+            total[k] = total.get(k, 0) + v
+        return out, kernel_launches(step)
+
+    for S in LG_PREFILL_S:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, S)),
+                               device=dev)
+        (got, got_kv), launches = counted(
+            lambda: api.prefill(params, {"tokens": toks}, kv_keep=512))
+        if launches != per_forward(cfg, S):
+            fail(f"{cfg.name} prefill S={S} launches {launches}, expected "
+                 f"{per_forward(cfg, S)}")
+        with torch.no_grad(), plain_versions():
+            want, want_kv = api.prefill(params, {"tokens": toks},
+                                        kv_keep=512)
+        torch.cuda.synchronize()
+        # the kept KV of each layer pair: the first pair is held to
+        # BF16_TOL, the later ones are printed (as the packed forwards' KV),
+        # as each carries the earlier pairs' bf16 rounding; the logits are
+        # held to the full-width limits below
+        for n in sorted(want_kv):
+            compare(torch, got_kv[n][0], want_kv[n][0], BF16_TOL,
+                    f"{cfg.name} prefill S={S} kept {n} of the first pair")
+        pairs = [max((got_kv[n][i].float() - want_kv[n][i].float()).abs()
+                     .max().item() for n in want_kv)
+                 for i in range(cfg.num_layers // 2)]
+        past = S > cfg.sliding_window
+        print(f"{cfg.name} prefill S={S} ({'past' if past else 'within'} "
+              f"the {cfg.sliding_window}-token window of the local layers): "
+              f"kept KV {sorted(got_kv)} max|kernel-plain| by layer pair "
+              f"[{', '.join(f'{e:.3e}' for e in pairs)}]; logits std="
+              f"{want.std().item():.4f}, final softcap "
+              f"{cfg.final_softcap:g}", flush=True)
+        compare_rows(torch, got, want, f"{cfg.name} prefill S={S}",
+                     unit="row")
+    lay, _ = packed_case(dev, SEG_LENS, SEG_S)
+    toks = torch.zeros((1, SEG_S), dtype=torch.long)
+    off = 0
+    for L in SEG_LENS:
+        toks[0, off:off + L] = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                             L))
+        off += L
+    toks = toks.to(dev)
+
+    def packed():
+        return tfm.prefill_packed(params, cfg, toks, lay["seg_ids"],
+                                  lay["positions"], lay["last_indices"])
+
+    (got, _), launches = counted(packed)
+    if (launches != per_forward(cfg)
+            or read_launches()["flash_attention[segmented]"]
+            != cfg.num_layers):
+        fail(f"{cfg.name} prefill_packed launches {launches}, expected "
+             f"{per_forward(cfg)}, every attention launch segmented")
+    with torch.no_grad(), plain_versions():
+        want, _ = packed()
+    torch.cuda.synchronize()
+    compare_rows(torch, got, want, f"{cfg.name} prefill_packed S={SEG_S}")
+    solo = []
+    with torch.no_grad(), uncounted():
+        off = 0
+        for L in SEG_LENS:
+            solo.append(api.prefill(params, {"tokens": toks[:, off:off + L]}
+                                    )[0][0])
+            off += L
+    compare_rows(torch, got, torch.stack(solo),
+                 f"{cfg.name} prefill_packed S={SEG_S} vs solo prefill",
+                 names=("packed", "solo"))
+    try:
+        PrefillOnlyEngine(cfg, params, device=dev)
+    except NotImplementedError as e:
+        if "C20" not in str(e):
+            fail(f"{cfg.name}: the engine refused without naming C20: {e}")
+        print(f"{cfg.name} engine refused: {e}", flush=True)
+    else:
+        fail(f"{cfg.name}: the engine took a local_global config")
+    return total
+
+
 def check_embeds(torch, dev, cfg, params) -> None:
     """Phase 3, the vlm input: ``build(cfg).prefill`` on ``embeds`` that
     are the embedding rows of seeded tokens, against ``prefill`` on those
@@ -2755,7 +2938,8 @@ def run_decode(torch, dev, spec: Spec, cfg, params):
     runs = (("decode", lambda: check_decode_consistency(
                 torch, dev, api, params, *spec.dec_cons)),
             ("decode_depth", lambda: run_decode_depth(torch, dev, api, params,
-                                                      spec.dec_b)))
+                                                      spec.dec_b,
+                                                      spec.dec_s)))
     for name, run in runs:
         if name in spec.phases:
             for k, v in run().items():
@@ -2794,8 +2978,8 @@ def check_decode_consistency(torch, dev, api, params, B: int = DEC_CONS_B,
         with torch.no_grad(), ctx, uncapped():
             cache = api.init_cache(B, 2 * P, device=dev)
             _, kv = api.prefill(params, {"tokens": seq[:, :P]}, kv_keep=P)
-            W = cache["k"].shape[2]
-            for n in ("k", "v"):
+            for n in cache:  # k/v, or local_global's ring/global pair
+                W = cache[n].shape[2]
                 if W < P:    # a window's ring: the last W tokens, each at
                     slots = torch.arange(P - W, P, device=dev) % W  # p % W
                     cache[n][:, :, slots] = kv[n][:, :, P - W:]
@@ -2836,38 +3020,49 @@ def check_decode_consistency(torch, dev, api, params, B: int = DEC_CONS_B,
     return total
 
 
-def run_decode_depth(torch, dev, api, params, B: int):
+def run_decode_depth(torch, dev, api, params, B: int, S: int = DEC_S):
     """DEC_STEPS decode steps at positions S-8..S-1 of an
-    ``init_cache(B, 32768)`` (48 GiB of bf16 KV at qwen1.5-0.5b's B = 16,
-    40 GiB at granite-3-8b's B = 8) filled from a seeded generator one layer
-    at a time in bf16: per-step launches (2L+1/L/L, no flash attention),
-    finite logits, the written slot new and finite in every layer while
-    every other slot keeps its f32 checksum, and the peak memory of each
-    step under cache + weights + 1 GiB (no cache copy). Prints the warm
-    step wall, tokens/s and one traced warm step."""
+    ``init_cache(B, S)``, S = ``spec.dec_s`` (48 GiB of bf16 KV at
+    qwen1.5-0.5b's B = 16 and S 32,768, 40 GiB at granite-3-8b's B = 8;
+    a local_global config's global caches of S slots beside local rings of
+    its window, which the positions overfill) filled from a seeded
+    generator one layer at a time in bf16: per-step launches (2L+1/L/L, no
+    flash attention), finite logits, the written slot (p, or p mod W in a
+    ring of W slots) new and finite in every layer while every other slot
+    keeps its f32 checksum, and the peak memory of each step under cache +
+    weights + 1 GiB (no cache copy). Prints the warm step wall, tokens/s and
+    one traced warm step."""
     import numpy as np
     cfg = api.cfg
-    S, Lyr = DEC_S, cfg.num_layers
+    Lyr = cfg.num_layers
     P0 = S - DEC_STEPS
     cache = api.init_cache(B, S, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     with torch.no_grad():
-        for n in ("k", "v"):
-            for layer in range(Lyr):
+        for n in cache:
+            for layer in range(cache[n].shape[0]):
                 cache[n][layer].normal_(generator=gen)
     cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
     weight_bytes = sum(a.numel() * a.element_size() for a in _leaves(params))
-    names = ("k", "v")
+    names = tuple(cache)
+    # each tree's first written slot: the steps write [a0, a0 + DEC_STEPS)
+    a0 = {n: P0 % cache[n].shape[2] for n in names}
+    if any(a + DEC_STEPS > cache[n].shape[2] for n, a in a0.items()):
+        fail(f"decode depth: the {DEC_STEPS} steps wrap a ring at S={S}")
 
     def checksums():
-        """Per (k/v, layer): f32 sum of slots [0, P0), and per-slot f32 sums
-        of slots [P0, S)."""
-        head = torch.stack([cache[n][layer, :, :P0].sum(dtype=torch.float32)
-                            for n in names for layer in range(Lyr)])
-        tail = torch.stack([cache[n][layer, :, P0:].sum(
-            dim=(0, 2, 3), dtype=torch.float32)
-            for n in names for layer in range(Lyr)])
-        return head, tail
+        """Per (tree, layer): f32 sum of the slots the steps do not write,
+        and per-slot f32 sums of the DEC_STEPS slots they write."""
+        head, tail = [], []
+        for n in names:
+            a, c = a0[n], cache[n]
+            for layer in range(c.shape[0]):
+                head.append(c[layer, :, :a].sum(dtype=torch.float32)
+                            + c[layer, :, a + DEC_STEPS:].sum(
+                                dtype=torch.float32))
+                tail.append(c[layer, :, a:a + DEC_STEPS].sum(
+                    dim=(0, 2, 3), dtype=torch.float32))
+        return torch.stack(head), torch.stack(tail)
 
     head0, tail0 = checksums()
     prev_tail = tail0
@@ -2881,9 +3076,13 @@ def run_decode_depth(torch, dev, api, params, B: int):
           f"{torch.cuda.memory_allocated()} bytes after the fill", flush=True)
     walls, peak = [], 0
     reset_launches()                         # the decode path starts here
+    def slot(i):                 # each tree's written slot at step i
+        return torch.cat([cache[n][:, :, a0[n] + i].flatten(1)
+                          for n in names])
+
     for i in range(DEC_STEPS):
         p = P0 + i
-        old = torch.stack([cache[n][:, :, p] for n in names])
+        old = slot(i)
         pos = torch.full((B,), p, dtype=torch.int32, device=dev)
         before = kernel_launches(read_launches())
         torch.cuda.synchronize()
@@ -2902,9 +3101,9 @@ def run_decode_depth(torch, dev, api, params, B: int):
         if out is not cache or not torch.isfinite(logits).all():
             fail(f"decode step {i}: cache not returned in place, or "
                  f"non-finite logits")
-        new = torch.stack([cache[n][:, :, p] for n in names])
+        new = slot(i)
         head, tail = checksums()
-        changed = (new != old).flatten(2).any(-1)          # (k/v, layer)
+        changed = (new != old).any(-1)                # (tree x layer,)
         if not (changed.all() and torch.isfinite(new).all()):
             fail(f"decode step {i}: slot {p} not rewritten with finite "
                  f"values in every layer")
@@ -2952,7 +3151,7 @@ def trace_decode_step(torch, api, params, cache, tokens, position) -> None:
     # a GQA model's decode runs flash decoding's tensor-core kernel
     gqa = api.cfg.num_heads > api.cfg.num_kv_heads
     report_trace(torch, prof, f"{api.cfg.name} decode B={tokens.shape[0]} "
-                 f"S={cache['k'].shape[2]}", wall,
+                 f"S={max(t.shape[2] for t in cache.values())}", wall,
                  expect=tc_kernels(api.cfg, TC_DECODE)
                  + (("decode_split_tc_kernel",) if gqa
                                      else ()))

@@ -8,13 +8,14 @@ import dataclasses
 
 # The families the port runs: the reference's transformer, whose vlm and
 # audio configs are dense blocks with an untied head (vlm may take
-# precomputed embeddings in place of token ids), and whose moe configs
-# replace each block's MLP with a mixture of experts (``models/moe.py``).
+# precomputed embeddings in place of token ids), whose moe configs
+# replace each block's MLP with a mixture of experts (``models/moe.py``),
+# and whose local_global configs (gemma2) pair a sliding-window layer with
+# a global one.
 PORTED_FAMILIES = ("dense", "vlm", "audio", "moe")
-# The ROADMAP item that brings each family or feature the port refuses.
+# The ROADMAP item that brings each family the port refuses.
 UNPORTED = {"ssm": "A6, SSM and hybrid (models/mamba2.py)",
-            "hybrid": "A6, SSM and hybrid (models/hybrid.py)",
-            "local_global": "A6, local_global (gemma2)"}
+            "hybrid": "A6, SSM and hybrid (models/hybrid.py)"}
 
 
 def _unported_family(cfg: "ModelConfig"):
@@ -25,15 +26,26 @@ def _unported_family(cfg: "ModelConfig"):
 
 def check_ported(cfg: "ModelConfig") -> None:
     """Raise ``NotImplementedError``, naming its ROADMAP item, unless the
-    port runs ``cfg``: a family of ``PORTED_FAMILIES`` without local/global
-    layer pairs."""
-    what = _unported_family(cfg) or (
-        "local_global" if cfg.local_global else None)
+    port runs ``cfg``: a family of ``PORTED_FAMILIES`` (with or without
+    local/global layer pairs)."""
+    what = _unported_family(cfg)
     if what is not None:
         raise NotImplementedError(
             f"{cfg.name}: the port runs the {'/'.join(PORTED_FAMILIES)} "
             f"families; {what} comes with ROADMAP "
             f"{UNPORTED.get(what, 'A6')}")
+
+
+def refuse_local_global(cfg: "ModelConfig", what: str) -> None:
+    """Raise ``NotImplementedError`` for a local_global config at ``what``
+    (the engine, the prefix-cache hit forwards): the reference has no
+    local/global branch there (its engine reads ``kv["k"]`` and its hit
+    forwards scan ``params["blocks"]``, which a local_global tree lacks),
+    so the port would add a feature the reference lacks (ROADMAP §C20)."""
+    if cfg.local_global:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} does not run local_global configs; the "
+            f"reference has no local/global branch there (ROADMAP §C20)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,12 +6,14 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.gemma2_9b import CONFIG as _gemma2
 from repro_torch.configs.granite_3_8b import CONFIG as _granite
 from repro_torch.configs.internvl2_2b import CONFIG as _internvl2
 from repro_torch.configs.llama3_1_8b import CONFIG as _llama
 from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as _scout
 from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
 from repro_torch.configs.musicgen_large import CONFIG as _musicgen
+from repro_torch.configs.phi3_mini_3_8b import CONFIG as _phi3
 from repro_torch.configs.qwen1_5_0_5b import CONFIG as _qwen
 
 REGISTRY: Dict[str, ModelConfig] = {
@@ -22,6 +24,8 @@ REGISTRY: Dict[str, ModelConfig] = {
     "musicgen-large": _musicgen,
     "mixtral-8x22b": _mixtral,
     "llama4-scout-17b-a16e": _scout,
+    "phi3-mini-3.8b": _phi3,
+    "gemma2-9b": _gemma2,
 }
 
 

@@ -80,7 +80,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, check_ported
+from repro_torch.configs.base import (ModelConfig, check_ported,
+                                      refuse_local_global)
 from repro_torch.core import compiled as _compiled
 from repro_torch.core.compiled import CompiledForward, side_stream
 from repro_torch.core.jct import LinearProxyJCT, PackedShapeJCT, Sample
@@ -151,12 +152,17 @@ class PrefillOnlyEngine:
     """Single-instance engine over a dense, vlm, audio or moe model (the
     families the reference's engine serves), fed token ids as the
     reference's engine feeds every family (real tensors on ``device``:
-    ``"cuda"`` by default, ``"cpu"`` only when asked for)."""
+    ``"cuda"`` by default, ``"cpu"`` only when asked for). A local_global
+    config (gemma2) is refused: the reference's engine reads ``kv["k"]``
+    from a miss that keeps KV and runs the hit forwards over
+    ``params["blocks"]``, neither of which a local_global tree has
+    (ROADMAP §C20)."""
 
     def __init__(self, cfg: ModelConfig, params: Dict,
                  ecfg: Optional[EngineConfig] = None,
                  device: DeviceLike = "cuda"):
         check_ported(cfg)
+        refuse_local_global(cfg, "the PrefillOnly engine")
         self.cfg = cfg
         self.device = resolve_device(device)
         with _compiled.device_lock:

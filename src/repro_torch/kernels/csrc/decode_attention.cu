@@ -51,7 +51,16 @@
 //      element from the ring once a block and using it for every head.
 // Masked and empty slots get an explicit zero weight and m starts at a
 // finite -1e30, so a split with no live slot contributes l = 0 and never
-// NaN, and a row with kv_len = 0 returns 0. Head dims 32, 64 and 128.
+// NaN, and a row with kv_len = 0 returns 0.
+//
+// Head dims 32, 64, 96, 128 and 256. The GEMV kernel gives each key row LPK
+// lanes of NP 16-byte packs each (NP = 1 but at D = 96, where a row's 12
+// bf16 or 24 f32 packs take 4 or 8 lanes of 3 packs, and at f32 D = 256, 32
+// lanes of 2), so LPK divides the warp. The tensor-core kernel needs D / 8
+// to divide its 128 threads: 32, 64, 128 and 256 (198 KB of shared memory
+// at 256, one block a SM); D = 96 takes only G = 1, in both dtypes
+// (kernels/decode_attention.py width_rule). The combine kernel's blocks are
+// min(D, 128) threads.
 #include <stdint.h>
 
 #include <type_traits>
@@ -112,66 +121,82 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
     long long vs_b, long long vs_s, long long vs_h, int S, int KV, int G,
     int splits, int chunk, float scale, float softcap) {
   constexpr int VEC = Pack<T>::N;
-  constexpr int LPK = D / VEC;             // lanes per key row
+  constexpr int PACKS = D / VEC;           // 16-byte packs a key row
+  constexpr int NP = PACKS % 3 == 0 ? 3 : (PACKS > 32 ? PACKS / 32 : 1);
+  constexpr int LPK = PACKS / NP;          // lanes per key row
+  constexpr int EL = NP * VEC;             // a lane's elements of a row
   constexpr int KPW = 32 / LPK;            // key rows per warp per pass
   constexpr int NG = kWarps * KPW;         // key rows per block per pass
-  constexpr int U = GP >= 8 ? 1 : (GP >= 4 ? 2 : 4);   // passes in flight
-  static_assert(D % VEC == 0 && 32 % LPK == 0, "head_dim");
+  constexpr int U0 = GP >= 8 ? 1 : (GP >= 4 ? 2 : 4);
+  constexpr int U = (U0 + NP - 1) / NP;    // passes in flight
+  static_assert(D % VEC == 0 && PACKS % NP == 0 && 32 % LPK == 0,
+                "head_dim");
 
   const int bk = blockIdx.x;               // b * KV + kv head
   const int b = bk / KV, h = bk % KV;
   const int split = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sub = lane % LPK;              // dims [sub*VEC, sub*VEC + VEC)
+  // this lane's packs of a row: sub, sub + LPK, ..., so that each load
+  // instruction of the LPK lanes reads LPK neighbouring packs
+  const int sub = lane % LPK;
   const int key_off = warp * KPW + lane / LPK;
   const int c0 = split * chunk;
   const int end = min(min(c0 + chunk, S), max(kv_len[b], 0));
 
-  float m[GP], l[GP], acc[GP][VEC];
+  float m[GP], l[GP], acc[GP][EL];
 #pragma unroll
   for (int g = 0; g < GP; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < EL; ++i) acc[g][i] = 0.f;
   }
 
   if (c0 < end) {                          // block-uniform
-    float qf[GP][VEC];
+    float qf[GP][EL];
 #pragma unroll
     for (int g = 0; g < GP; ++g) {
       const T* qp = q + b * qs_b + (long long)(h * G + g) * qs_h + sub * VEC;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        qf[g][i] = g < G ? to_f32(qp[i]) * scale : 0.f;
+      for (int j = 0; j < NP; ++j)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          qf[g][j * VEC + i] =
+              g < G ? to_f32(qp[j * LPK * VEC + i]) * scale : 0.f;
     }
     const T* kb = k + b * ks_b + h * ks_h + sub * VEC;
     const T* vb = v + b * vs_b + h * vs_h + sub * VEC;
     // the loop bound is block-uniform, so every lane reaches the shuffles
     for (int base = c0; base < end; base += NG * U) {
-      uint4 kr[U], vr[U];
+      uint4 kr[U][NP], vr[U][NP];
       bool live[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int idx = base + u * NG + key_off;
         live[u] = idx < end;
-        if (live[u]) {
-          kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + idx * ks_s));
-          vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + idx * vs_s));
-        } else {
-          kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int j = 0; j < NP; ++j) {
+          if (live[u]) {
+            kr[u][j] = __ldg(reinterpret_cast<const uint4*>(
+                kb + idx * ks_s + j * LPK * VEC));
+            vr[u][j] = __ldg(reinterpret_cast<const uint4*>(
+                vb + idx * vs_s + j * LPK * VEC));
+          } else {
+            kr[u][j] = vr[u][j] = make_uint4(0u, 0u, 0u, 0u);
+          }
         }
       }
       float s[U][GP];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        float kf[VEC];
-        Pack<T>::unpack(kr[u], kf);
+        float kf[EL];
+#pragma unroll
+        for (int j = 0; j < NP; ++j) Pack<T>::unpack(kr[u][j], kf + j * VEC);
 #pragma unroll
         for (int g = 0; g < GP; ++g) {
           float t = 0.f;
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) t = fmaf(qf[g][i], kf[i], t);
+          for (int i = 0; i < EL; ++i) t = fmaf(qf[g][i], kf[i], t);
 #pragma unroll
           for (int o = LPK / 2; o > 0; o >>= 1)
             t += __shfl_xor_sync(kFull, t, o);
@@ -188,19 +213,20 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
         const float corr = expf(m[g] - mx);
         l[g] *= corr;
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[g][i] *= corr;
+        for (int i = 0; i < EL; ++i) acc[g][i] *= corr;
         m[g] = mx;
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        float vf[VEC];
-        Pack<T>::unpack(vr[u], vf);
+        float vf[EL];
+#pragma unroll
+        for (int j = 0; j < NP; ++j) Pack<T>::unpack(vr[u][j], vf + j * VEC);
 #pragma unroll
         for (int g = 0; g < GP; ++g) {
           const float p = live[u] ? expf(s[u][g] - m[g]) : 0.f;
           l[g] += p;
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) acc[g][i] = fmaf(p, vf[i], acc[g][i]);
+          for (int i = 0; i < EL; ++i) acc[g][i] = fmaf(p, vf[i], acc[g][i]);
         }
       }
     }
@@ -218,7 +244,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
       const float a = expf(m[g] - mx), c = expf(mo - mx);
       l[g] = l[g] * a + lo * c;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
+      for (int i = 0; i < EL; ++i) {
         const float ao = __shfl_xor_sync(kFull, acc[g][i], o);
         acc[g][i] = acc[g][i] * a + ao * c;
       }
@@ -233,7 +259,10 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
 #pragma unroll
     for (int g = 0; g < GP; ++g)
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) sm_acc[warp][g][sub * VEC + i] = acc[g][i];
+      for (int j = 0; j < NP; ++j)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          sm_acc[warp][g][(sub + j * LPK) * VEC + i] = acc[g][j * VEC + i];
   }
   if (lane == 0) {
 #pragma unroll
@@ -281,7 +310,9 @@ __device__ __forceinline__ void cp_async16_l2(uint32_t dst, const void* src,
 // tile's f32 p [kTile][GP] and the warps' tile maxima [kScoreWarps][GP],
 // the block's m [GP]. After
 // the loop the ring holds the warps' partial sums for the block's merge.
-// 106 KB at D = 128 (2 blocks a SM), 57 KB at D = 64, 33 KB at D = 32.
+// 106 KB at D = 128 (2 blocks a SM), 57 KB at D = 64, 33 KB at D = 32, 198
+// KB at D = 256 (1 block a SM: two 64-slot tiles of K and V in flight, 128
+// KB, while the block computes on the third).
 template <int D, int GP>
 struct TcSmem {
   static constexpr int DS = D + 8;
@@ -294,8 +325,12 @@ struct TcSmem {
                 "the merge fits the ring");
 };
 
+// The tensor-core kernel. Its bound asks for one block a SM (a register cap
+// of 255) and leaves the residency to the ring's shared memory: at D = 256 under the plain bound
+// ptxas held the group-2 instantiation to 128 registers and spilt 12 bytes
+// (164 registers and no spill with this one).
 template <int D, int GP>
-__global__ void __launch_bounds__(kTcThreads) decode_split_tc_kernel(
+__global__ void __launch_bounds__(kTcThreads, 1) decode_split_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const int* __restrict__ kv_len,
     float* __restrict__ ws_acc, float* __restrict__ ws_ml, long long qs_b,
@@ -604,7 +639,8 @@ struct Kernel {
         st[7], a.S, a.KV, a.G, a.splits, a.chunk, a.scale, a.softcap);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    decode_combine_kernel<T><<<dim3(a.B * a.KV, a.G), a.D, 0, s>>>(
+    decode_combine_kernel<T><<<dim3(a.B * a.KV, a.G), a.D < 128 ? a.D : 128,
+                               0, s>>>(
         a.ws_acc, a.ws_ml, static_cast<T*>(a.out), a.KV, a.G, a.D,
         a.splits);
     return static_cast<int>(cudaGetLastError());
@@ -626,20 +662,25 @@ struct Occupancy {
 
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
-// The instantiations: bf16 takes the tensor-core kernel at G = 2..8 (padded
-// to 2, 4, 8) and the GEMV kernel at G = 1; f32 takes the GEMV kernel at
-// every G. The wrapper's rule (decode_attention.kernel_rule) picks `tc`.
+// The instantiations: the GEMV kernel at G = 1 in both dtypes; at D = 96
+// nothing else (its 12 column pieces a row do not tile the tensor-core
+// kernel's threads); otherwise bf16 takes the tensor-core kernel at G =
+// 2..8 (padded to 2, 4, 8) and f32 the GEMV kernel at every G. The
+// wrapper's rules (decode_attention.kernel_rule, width_rule) pick `tc` and
+// refuse the rest before a launch.
 template <typename T, int D, typename F>
 int by_group(int G, bool tc, const F& f) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (!tc) return G == 1 ? f.template run<Kernel<T, D, 1, false>>() : kInvalid;
+  if (!tc && G == 1) return f.template run<Kernel<T, D, 1, false>>();
+  if constexpr (D == 96) {
+    return kInvalid;
+  } else if constexpr (std::is_same<T, bf16>::value) {
+    if (!tc) return kInvalid;
     if (G == 2) return f.template run<Kernel<T, D, 2, true>>();
     if (G >= 3 && G <= 4) return f.template run<Kernel<T, D, 4, true>>();
     if (G >= 5 && G <= 8) return f.template run<Kernel<T, D, 8, true>>();
     return kInvalid;
   } else {
     if (tc) return kInvalid;
-    if (G == 1) return f.template run<Kernel<T, D, 1, false>>();
     if (G == 2) return f.template run<Kernel<T, D, 2, false>>();
     if (G >= 3 && G <= 4) return f.template run<Kernel<T, D, 4, false>>();
     if (G >= 5 && G <= 8) return f.template run<Kernel<T, D, 8, false>>();
@@ -653,7 +694,9 @@ int dispatch(int dtype, int D, int G, bool tc, const F& f) {
   switch (D) {                                                       \
     case 32: return by_group<T, 32>(G, tc, f);                       \
     case 64: return by_group<T, 64>(G, tc, f);                       \
+    case 96: return by_group<T, 96>(G, tc, f);                       \
     case 128: return by_group<T, 128>(G, tc, f);                     \
+    case 256: return by_group<T, 256>(G, tc, f);                     \
     default: return kInvalid;                                        \
   }
   if (dtype == kFloat32) REPRO_DECODE_D(float)

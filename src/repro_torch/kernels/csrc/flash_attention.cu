@@ -68,11 +68,17 @@
 // sums (p = 0 explicitly, or exp2(-inf) = 0 from a finite running max), so
 // fully masked rows (padding queries) return 0 and never NaN.
 //
-// Head dims: bf16 takes 32, 64 and 128 (qwen1.5-0.5b runs 64, granite-3-8b
-// 128); its shared memory is dynamic (87 KB at 128) and its blocks per SM
-// follow D (flash_fwd_tc_kernel). f32 takes 32 and 64: its one-thread-a-row
-// kernel keeps a row's q and acc in registers, 2 D floats, which at D = 128
-// would pass the 255-register cap (kernels/flash_attention.py width_rule).
+// Head dims: bf16 takes 32, 64, 96, 128 and 256 (qwen1.5-0.5b runs 64,
+// granite-3-8b 128, phi3-mini-3.8b 96, gemma2-9b 256); its shared memory is
+// dynamic (87 KB at 128, 166 KB at 256) and its blocks per SM follow D
+// (flash_fwd_tc_kernel). At D = 256 a thread's O accumulator alone is 128
+// f32 registers, so the Q fragments are not held: each k-step reads them
+// from the shared query tile with ldmatrix (as FlashAttention-2 does at
+// that width), and a 64-key tile is scored in four 16-key quarters, each an
+// online-softmax step, which quarters the score fragments. f32 takes 32 and
+// 64: its one-thread-a-row kernel keeps a row's q and acc in registers, 2 D
+// floats, which at D = 128 would pass the 255-register cap
+// (kernels/flash_attention.py width_rule).
 //
 // What bounds it on the H100: at the main path's shapes (d = 64 or 128,
 // S <= 2K, Sk <= ~5K) the live pairs' operations or the bytes of q, k, v
@@ -321,9 +327,12 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 // The tensor-core kernel's dynamic shared memory at head_dim D: the query
 // tile, the 2-stage K and V rings (rows padded to DS = D + 8 bf16, so
-// ldmatrix is free of bank conflicts), the ring's segment ids and positions,
-// and the window of skip decisions. 46 KB at D = 64, 87 KB at D = 128 (above
-// the 48 KB of static shared memory, so the launch raises the limit).
+// ldmatrix is free of bank conflicts: rows of 208 bytes at D = 96 and 528
+// at D = 256 put the 8 rows of an 8x8 matrix on 8 distinct 16-byte bank
+// groups), the ring's segment ids and positions, and the window of skip
+// decisions. 46 KB at D = 64, 66 KB at D = 96, 87 KB at D = 128, 166 KB at
+// D = 256 (above the 48 KB of static shared memory, so the launch raises
+// the limit; at 256, one block a SM).
 template <int D>
 struct TcSmem {
   static constexpr int DS = D + 8;
@@ -339,13 +348,20 @@ struct TcSmem {
 // warp's O accumulator and Q fragments double (64 f32 and 32 packed
 // registers a thread), so 2 blocks (cap 255; it uses 251), which is also
 // what the 87 KB of shared memory allows. D = 32, on no model's path, spilt
-// 4 bytes under the cap of 3 blocks, so it takes 2 as well.
+// 4 bytes under the cap of 3 blocks, so it takes 2 as well, and so does D =
+// 96 (48 f32 of O and 24 packed registers of Q a thread). At D = 256 the
+// 166 KB of shared memory holds one block a SM, so the cap is 255: O is 128
+// f32 a thread, Q stays in shared memory (Q_IN_REGS) and the score
+// fragments cover a quarter of a key tile (KS).
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS, D == 64 ? 3 : 2)
+__global__ void __launch_bounds__(TC_THREADS, D == 64 ? 3 : (D == 256 ? 1 : 2))
     flash_fwd_tc_kernel(const Params p) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   using Sm = TcSmem<D>;
   constexpr int DS = Sm::DS;
+  constexpr bool Q_IN_REGS = D <= 128;   // Q fragments held, or re-read
+  constexpr int KS = D <= 128 ? TK : TK / 4;   // keys a softmax step
+  static_assert(TK % KS == 0 && KS % 16 == 0, "whole score sub-tiles");
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
   bf16* Ks = Qs + Sm::Q_ELEMS;                // stage st at Ks + st * KV_ELEMS
@@ -437,26 +453,38 @@ __global__ void __launch_bounds__(TC_THREADS, D == 64 ? 3 : 2)
                   : nullptr;
 
   // copy key tile t (K, V, and its ids / positions) into stage st; keys
-  // past kv_valid are zero-filled. A thread's chunks keep their column and
-  // step by whole rows, so their addresses are set up once.
-  constexpr int KV_CHUNKS = TK * (D / 8) / TC_THREADS;
-  constexpr int KV_RSTEP = TC_THREADS / (D / 8);
-  static_assert(KV_CHUNKS * TC_THREADS == TK * (D / 8), "whole chunks");
-  const int kv_r0 = tid / (D / 8);
-  const int kv_dc = (tid % (D / 8)) * 8;
-  const bf16* k_src = K + b * p.k_sb + kh * p.k_sh + kv_dc;
-  const bf16* v_src = V + b * p.v_sb + kh * p.v_sh + kv_dc;
+  // past kv_valid are zero-filled. Where the threads tile whole rows (D / 8
+  // divides 128), a thread's chunks keep their column and step by whole
+  // rows, so their addresses are set up once; at D = 96 (12 chunks a row)
+  // chunk c = tid + 128 i sits at row c / 12, column c % 12.
+  constexpr int CPR = D / 8;                 // 16-byte chunks a row
+  constexpr int KV_CHUNKS = TK * CPR / TC_THREADS;
+  constexpr bool ROW_STEP = TC_THREADS % CPR == 0;
+  constexpr int KV_RSTEP = TC_THREADS / CPR;
+  static_assert(KV_CHUNKS * TC_THREADS == TK * CPR, "whole chunks");
+  const int kv_r0 = tid / CPR;
+  const int kv_dc = (tid % CPR) * 8;
+  const bf16* k_src = K + b * p.k_sb + kh * p.k_sh;
+  const bf16* v_src = V + b * p.v_sb + kh * p.v_sh;
   auto load_tile = [&](int t, int st) {
     const int k0 = t * TK;
 #pragma unroll
     for (int i = 0; i < KV_CHUNKS; ++i) {
-      const int r = kv_r0 + i * KV_RSTEP;
+      int r, dc;
+      if constexpr (ROW_STEP) {
+        r = kv_r0 + i * KV_RSTEP;
+        dc = kv_dc;
+      } else {
+        const int c = tid + i * TC_THREADS;
+        r = c / CPR;
+        dc = (c % CPR) * 8;
+      }
       const bool ok = k0 + r < n_valid;
       const long long kr = k0 + r;
-      cp_async16(smem_u32(Ks + st * Sm::KV_ELEMS + r * DS + kv_dc),
-                 ok ? k_src + kr * p.k_ss : K, ok);
-      cp_async16(smem_u32(Vs + st * Sm::KV_ELEMS + r * DS + kv_dc),
-                 ok ? v_src + kr * p.v_ss : V, ok);
+      cp_async16(smem_u32(Ks + st * Sm::KV_ELEMS + r * DS + dc),
+                 ok ? k_src + kr * p.k_ss + dc : K, ok);
+      cp_async16(smem_u32(Vs + st * Sm::KV_ELEMS + r * DS + dc),
+                 ok ? v_src + kr * p.v_ss + dc : V, ok);
     }
     if (segmented && tid < TK) {
       const bool ok = k0 + tid < p.Sk;
@@ -517,30 +545,44 @@ __global__ void __launch_bounds__(TC_THREADS, D == 64 ? 3 : 2)
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
   float m_r[2] = {NEG_INF, NEG_INF};   // running max, log2 domain
   float l_r[2] = {0.f, 0.f};           // this thread's share of the sum
-  uint32_t qf[D / 16][4];
+  uint32_t qf[Q_IN_REGS ? D / 16 : 1][4];
   bool q_ready = false;
 
-  // S = Q.K^T on tile t, masks, online softmax, O += P.V
-  auto compute = [&](int t, int st) {
-    const bf16* Kt = Ks + st * Sm::KV_ELEMS;
-    const bf16* Vt = Vs + st * Sm::KV_ELEMS;
+  // S = Q.K^T on keys [sub * KS, sub * KS + KS) of tile t, masks, online
+  // softmax, O += P.V
+  auto compute = [&](int t, int st, int sub) {
+    const bf16* Kt = Ks + st * Sm::KV_ELEMS + sub * KS * DS;
+    const bf16* Vt = Vs + st * Sm::KV_ELEMS + sub * KS * DS;
     const int k0 = t * TK;
-    float s[TK / 8][4];
+    const int c0 = sub * KS;                  // the sub-tile's first column
+    float s[KS / 8][4];
 #pragma unroll
-    for (int j = 0; j < TK / 8; ++j)
+    for (int j = 0; j < KS / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    // one k-step of S += Q.K^T over the sub-tile's keys
+    auto qk_step = [&](int kd, const uint32_t (&qk)[4]) {
 #pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd)
-#pragma unroll
-      for (int jj = 0; jj < TK / 16; ++jj) {
+      for (int jj = 0; jj < KS / 16; ++jj) {
         uint32_t kf[4];
         ldmatrix_x4(kf, smem_u32(Kt + (jj * 16 + (lane & 7) + (lane >> 4) * 8)
                                           * DS + kd * 16
                                       + ((lane >> 3) & 1) * 8));
-        mma_bf16(s[2 * jj], qf[kd], kf[0], kf[1]);
-        mma_bf16(s[2 * jj + 1], qf[kd], kf[2], kf[3]);
+        mma_bf16(s[2 * jj], qk, kf[0], kf[1]);
+        mma_bf16(s[2 * jj + 1], qk, kf[2], kf[3]);
       }
+    };
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      if constexpr (Q_IN_REGS) {
+        qk_step(kd, qf[kd]);
+      } else {                    // from the shared query tile
+        uint32_t qk[4];
+        ldmatrix_x4(qk, smem_u32(Qs + (warp * 16 + (lane & 15)) * DS +
+                                 kd * 16 + (lane >> 4) * 8));
+        qk_step(kd, qk);
+      }
+    }
     // scores to the log2 domain, s * scale * log2(e) (softcap: cap *
     // tanh(s * scale / cap) * log2(e)); each step is its own loop over the
     // fragment, so the common path stays one compact run of code
@@ -548,14 +590,14 @@ __global__ void __launch_bounds__(TC_THREADS, D == 64 ? 3 : 2)
       const float inv_cap = 1.f / p.softcap;
       const float cap_log2 = p.softcap * LOG2E;
 #pragma unroll
-      for (int j = 0; j < TK / 8; ++j)
+      for (int j = 0; j < KS / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           s[j][e] = cap_log2 * tanhf(s[j][e] * p.scale * inv_cap);
     } else {
       const float scale_log2 = p.scale * LOG2E;
 #pragma unroll
-      for (int j = 0; j < TK / 8; ++j)
+      for (int j = 0; j < KS / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
     }
@@ -568,11 +610,11 @@ __global__ void __launch_bounds__(TC_THREADS, D == 64 ? 3 : 2)
       const bool causal = p.causal != 0;
       const bool windowed = p.window > 0;
 #pragma unroll
-      for (int j = 0; j < TK / 8; ++j)
+      for (int j = 0; j < KS / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = e >> 1;
-          const int c = j * 8 + t4 * 2 + (e & 1);
+          const int c = c0 + j * 8 + t4 * 2 + (e & 1);
           // selects, not branches: ids not loaded in this mode are unused
           const int kp = positioned ? pos_s[st * TK + c] : k0 + c;
           const int ks = seg_s[st * TK + c];
@@ -585,7 +627,7 @@ __global__ void __launch_bounds__(TC_THREADS, D == 64 ? 3 : 2)
     }
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < TK / 8; ++j)
+    for (int j = 0; j < KS / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
     float corr[2];
@@ -606,7 +648,7 @@ __global__ void __launch_bounds__(TC_THREADS, D == 64 ? 3 : 2)
       o[dt][3] *= corr[1];
     }
 #pragma unroll
-    for (int j = 0; j < TK / 8; ++j)
+    for (int j = 0; j < KS / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float pe = fast_exp2(s[j][e] - m_r[e >> 1]);   // masked: 0
@@ -614,7 +656,7 @@ __global__ void __launch_bounds__(TC_THREADS, D == 64 ? 3 : 2)
         l_r[e >> 1] += pe;
       }
 #pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
+    for (int kk = 0; kk < KS / 16; ++kk) {
       const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
@@ -654,14 +696,15 @@ __global__ void __launch_bounds__(TC_THREADS, D == 64 ? 3 : 2)
       cp_async_commit();
       cp_async_wait<1>();       // tile t (and the query tile) has landed
       __syncthreads();
-      if (!q_ready) {
+      if (Q_IN_REGS && !q_ready) {
 #pragma unroll
-        for (int kd = 0; kd < D / 16; ++kd)
+        for (int kd = 0; kd < (Q_IN_REGS ? D / 16 : 1); ++kd)
           ldmatrix_x4(qf[kd], smem_u32(Qs + (warp * 16 + (lane & 15)) * DS +
                                        kd * 16 + (lane >> 4) * 8));
         q_ready = true;
       }
-      compute(t, st);
+#pragma unroll
+      for (int sub = 0; sub < TK / KS; ++sub) compute(t, st, sub);
       __syncthreads();          // stage st is free for the load after next
       t = tn;
       st ^= 1;
@@ -764,8 +807,12 @@ int launch_tc(const Params& p, int B, int D, cudaStream_t s) {
       return launch_tc_d<32>(p, B, s);
     case 64:
       return launch_tc_d<64>(p, B, s);
+    case 96:
+      return launch_tc_d<96>(p, B, s);
     case 128:
       return launch_tc_d<128>(p, B, s);
+    case 256:
+      return launch_tc_d<256>(p, B, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

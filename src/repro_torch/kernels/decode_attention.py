@@ -9,9 +9,13 @@ decode_attention``: q (B, 1, H, d), caches (B, S, KV, d), ``kv_len`` (B,)
 scale is ``d ** -0.5``. Scores, softmax and P.V are f32, with p kept in f32
 as the Pallas kernel keeps it; the result is cast to q's dtype. Any S is
 taken: the cache is neither padded nor copied. Head dims are a rule of
-dtype and width (``width_rule``): 32, 64 and 128 in both dtypes
-(qwen1.5-0.5b's 64, granite-3-8b's 128); any other width raises before a
-launch. At most ``MAX_GROUP`` query heads per kv head.
+dtype, width and group (``width_rule``): 32, 64, 96, 128 and 256 in both
+dtypes (qwen1.5-0.5b's 64, phi3-mini-3.8b's 96, granite-3-8b's 128,
+gemma2-9b's 256), but head_dim 96 only at G = 1 (the tensor-core kernel's
+16-byte column pieces, 12 a row, do not tile its 128 threads; phi3 is
+MHA); any other width raises before a launch (head_dim 80 comes with
+ROADMAP §A6.4). At most ``MAX_GROUP`` query heads per kv
+head.
 
 The Pallas grid (B, KV, splits) walks the splits serially with an (m, l,
 acc) carry. The Hopper kernels (``csrc/decode_attention.cu``) run the
@@ -42,10 +46,14 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import TO_COME
 
 NEG_INF = -1e30
 # head dims instantiated in csrc/decode_attention.cu, by dtype (width_rule)
-HEAD_DIMS = {torch.bfloat16: (32, 64, 128), torch.float32: (32, 64, 128)}
+HEAD_DIMS = {torch.bfloat16: (32, 64, 96, 128, 256),
+             torch.float32: (32, 64, 96, 128, 256)}
+# head dims built at G = 1 only, in both dtypes (width_rule)
+SOLO_DIMS = (96,)
 MAX_GROUP = 8                       # query heads per kv head
 KEY_TILE = 64                       # slots a key tile; chunks are whole tiles
 # split rule, where the rows alone fill a wave: a block's fixed cost (its
@@ -195,20 +203,32 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, d).to(q.dtype)
 
 
-def width_rule(d: int, dtype) -> None:
-    """Raise unless the kernel for ``dtype`` is built for head_dim ``d``: a
-    rule of dtype and width, held before every launch. Both dtypes take d
-    in (32, 64, 128): a warp reads a key row in 16-byte pieces, D / 8
-    lanes a row at bf16 (4 to 16) and D / 4 at f32 (8 to 32)."""
+def width_rule(d: int, dtype, G: int = 1) -> None:
+    """Raise unless the kernel for ``dtype`` is built for head_dim ``d`` at
+    ``G`` query heads per kv head: a rule of dtype, width and group, held
+    before every launch. Both dtypes take d in (32, 64, 96, 128, 256): the
+    GEMV kernel reads a key row in 16-byte packs, LPK lanes of NP packs
+    each (LPK divides the warp: 3 packs a lane at d = 96); the tensor-core
+    kernel (bf16, G >= 2) needs d / 8 to divide its 128 threads, so d = 96
+    (``SOLO_DIMS``) takes G = 1 only, in both dtypes. head_dim 80 names the
+    ROADMAP item that brings it."""
     dims = HEAD_DIMS.get(dtype)
     if dims is None:
         raise TypeError(f"decode_attention: kernels take float32 or "
                         f"bfloat16, not {dtype}")
     if d not in dims:
+        later = f"; head_dim {d} comes with {TO_COME[d]}" if d in TO_COME \
+            else ""
         raise ValueError(
             f"decode_attention: head_dim {d} is not built for {dtype} (rule "
             f"of dtype and width: bfloat16 takes {HEAD_DIMS[torch.bfloat16]}"
-            f", float32 {HEAD_DIMS[torch.float32]})")
+            f", float32 {HEAD_DIMS[torch.float32]}{later})")
+    if d in SOLO_DIMS and G > 1:
+        raise ValueError(
+            f"decode_attention: head_dim {d} takes one query head per kv "
+            f"head, not {G} (rule of dtype and width: the tensor-core "
+            f"kernel's 16-byte column pieces, {d // 8} a row, do not tile its "
+            f"128 threads)")
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -230,7 +250,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          "share one CUDA device")
     B, _, H, d = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
-    width_rule(d, q.dtype)
+    width_rule(d, q.dtype, H // KV)
     if H // KV > MAX_GROUP:
         raise ValueError(f"decode_attention: {H // KV} query heads per kv "
                          f"head, the kernel takes at most {MAX_GROUP}")

@@ -35,12 +35,15 @@ sequential kv axis into a loop inside the block, and are chosen by dtype:
   CUDA-core kernel: one warp per block, one thread per query row of
   ``F32_BLOCK`` = 32, f32 FMAs.
 
-Head dims are a rule of dtype and width (``width_rule``): bf16 takes 32, 64
-and 128 (qwen1.5-0.5b's 64, granite-3-8b's 128); f32 takes 32 and 64, as
-its one-thread-a-row kernel keeps a query row and its accumulator in
+Head dims are a rule of dtype and width (``width_rule``): bf16 takes 32,
+64, 96, 128 and 256 (qwen1.5-0.5b's 64, phi3-mini-3.8b's 96, granite-3-8b's
+128, gemma2-9b's 256; at 256 the tensor-core kernel re-reads its Q
+fragments from shared memory and scores a key tile in quarters, as its
+O accumulator is 128 f32 a thread); f32 takes 32 and 64, as its
+one-thread-a-row kernel keeps a query row and its accumulator in
 registers, 2 d floats a thread, past the 255-register cap at d = 128. Any
-other width raises before a launch; the plain version is never taken for a
-CUDA tensor.
+other width raises before a launch (head_dim 80, zamba2's, comes with
+ROADMAP §A6.4); the plain version is never taken for a CUDA tensor.
 
 Both skip whole key tiles that cannot be live, as the Pallas kernel's range
 tests do (structural causal/window range; segment-id ranges that do not
@@ -72,7 +75,11 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 # head dims instantiated in csrc/flash_attention.cu, by dtype (width_rule)
-HEAD_DIMS = {torch.bfloat16: (32, 64, 128), torch.float32: (32, 64)}
+HEAD_DIMS = {torch.bfloat16: (32, 64, 96, 128, 256),
+             torch.float32: (32, 64)}
+# widths a config of the reference uses that no kernel takes yet, and the
+# ROADMAP item that brings each (both attention wrappers' width rules)
+TO_COME = {80: "ROADMAP §A6.4 (zamba2's shared attention)"}
 BLOCK_Q = BLOCK_K = 64              # the bf16 kernel's query block, key tile
 F32_BLOCK = 32                      # the f32 kernel's query block and key tile
 MODES = ("dense", "segmented", "positioned")
@@ -91,19 +98,23 @@ _ARGTYPES = ([ctypes.c_void_p] * 10                          # q, k, v, o,
 def width_rule(d: int, dtype) -> None:
     """Raise unless the kernel for ``dtype`` is built for head_dim ``d``.
     A rule of dtype and width, held before every launch: bf16 runs the
-    tensor-core kernel at d in (32, 64, 128); f32 runs the CUDA-core kernel
-    at d in (32, 64), since it keeps 2 d f32 values of a query row in one
-    thread's registers (256 at d = 128, past the 255-register cap)."""
+    tensor-core kernel at d in (32, 64, 96, 128, 256); f32 runs the
+    CUDA-core kernel at d in (32, 64), since it keeps 2 d f32 values of a
+    query row in one thread's registers (256 at d = 128, past the
+    255-register cap). head_dim 80 names the ROADMAP item that brings it."""
     dims = HEAD_DIMS.get(dtype)
     if dims is None:
         raise TypeError(f"flash_attention: kernels take float32 or bfloat16, "
                         f"not {dtype}")
     if d not in dims:
+        later = f"; head_dim {d} comes with {TO_COME[d]}" if d in TO_COME \
+            else ""
         raise ValueError(
             f"flash_attention: head_dim {d} is not built for {dtype} (rule "
             f"of dtype and width: bfloat16 takes {HEAD_DIMS[torch.bfloat16]}"
             f", float32 {HEAD_DIMS[torch.float32]}, as the f32 kernel keeps "
-            f"a query row and its accumulator in one thread's registers)")
+            f"a query row and its accumulator in one thread's registers"
+            f"{later})")
 
 
 def tile_shape(dtype) -> Tuple[int, int]:

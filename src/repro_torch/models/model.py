@@ -1,5 +1,6 @@
 """Model API: one object per config of the port's families (dense, vlm,
-audio, moe; ``configs.base.check_ported``).
+audio, moe, with or without local/global layer pairs;
+``configs.base.check_ported``).
 
 Port of ``repro.models.model``'s ``ModelAPI`` and ``build``:
 
@@ -46,9 +47,9 @@ def _train_loss(*args, **kwargs):
 
 def build(cfg: ModelConfig) -> ModelAPI:
     """The API of a dense, vlm, audio or moe config (an moe config's decode
-    runs its experts on each step's tokens, and a sliding window's cache is
-    a ring); other families and local_global configs raise, naming their
-    ROADMAP items."""
+    runs its experts on each step's tokens, a sliding window's cache is a
+    ring, and a local_global config's cache is the ring/global pair); other
+    families raise, naming their ROADMAP items."""
     check_ported(cfg)
     dtype = L.torch_dtype(cfg.dtype)
 

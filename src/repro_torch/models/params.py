@@ -1,11 +1,13 @@
-"""Parameter trees of the transformer (dense, vlm, audio and moe families):
-seeded init and a numpy bridge.
+"""Parameter trees of the transformer (dense, vlm, audio and moe families,
+with or without local/global pairs): seeded init and a numpy bridge.
 
 The tree is the reference's (``repro.models.transformer.model_defs``):
 ``embed/tok`` (V, D); ``blocks/{ln1, ln2, attn/{wq, wk, wv, wo, bq, bk, bv},
 mlp/{w_gate, w_up, w_down}}`` stacked with a leading layer axis, where an
 moe config has ``moe/{router, w_gate, w_up, w_down, shared/*}``
-(``models.moe.moe_defs``) in place of ``mlp``;
+(``models.moe.moe_defs``) in place of ``mlp``, and a local_global config
+(gemma2) has two such stacks of ``num_layers // 2`` blocks each,
+``blocks_local`` and ``blocks_global``, in place of ``blocks``;
 ``final_norm`` (D,); ``lm_head`` (D, V) when embeddings are untied.
 Initializers follow ``repro.runtime.sharding.materialize``: zeros for norms
 and biases, normal/sqrt(fan_in) for "scaled" matrices, normal*0.02 for the
@@ -53,8 +55,11 @@ def param_defs(cfg: ModelConfig) -> ParamDefs:
         block[("mlp", "w_up")] = ((D, F), "scaled")
         block[("mlp", "w_down")] = ((F, D), "scaled")
     defs: ParamDefs = {("embed", "tok"): ((V, D), "normal")}
-    for path, (shape, init) in block.items():
-        defs[("blocks",) + path] = ((Ln,) + shape, init)
+    stacks = ((("blocks_local",), Ln // 2), (("blocks_global",), Ln // 2)) \
+        if cfg.local_global else ((("blocks",), Ln),)
+    for stack, n in stacks:
+        for path, (shape, init) in block.items():
+            defs[stack + path] = ((n,) + shape, init)
     defs[("final_norm",)] = ((D,), "zeros")
     if not cfg.tie_embeddings:
         defs[("lm_head",)] = ((D, V), "scaled")

@@ -13,11 +13,21 @@ cast to the model dtype) in place of token ids, as the reference's do; the
 packed forwards and ``decode_step`` take token ids only, as there.
 Parameters keep the reference's stacked tree (``blocks/*`` with a leading
 layer axis, ``embed/tok``, ``final_norm``; see ``models/params.py``), and
-the layer scan becomes a Python loop over layers. An moe config's blocks
-run ``models.moe.moe_apply`` in place of the MLP (``_ffn``): the prefill
-forwards dispatch ``hybrid_chunk`` tokens at a time, decode all of a step's
-tokens at once, as the reference does. The local_global (gemma2) and
-fp8-weight branches come with later slices.
+the layer scan becomes a Python loop over layers (``_layers``). An moe
+config's blocks run ``models.moe.moe_apply`` in place of the MLP
+(``_ffn``): the prefill forwards dispatch ``hybrid_chunk`` tokens at a
+time, decode all of a step's tokens at once, as the reference does.
+
+A local_global config (gemma2) runs its layers in (local, global) pairs
+from ``blocks_local`` and ``blocks_global``: the local layer with the
+sliding window, the global one without; token embeddings are scaled by
+sqrt(d_model) rounded to the model dtype first; the KV tree is
+{local_k, local_v, global_k, global_v}, and the decode cache pairs a ring
+of ``min(window, max_len)`` slots (local) with a full cache (global). As in
+the reference, ``forward_full``, ``prefill``, ``prefill_packed``,
+``init_cache`` and ``decode_step`` take it; the prefix-cache hit forwards
+do not (the reference's scan ``params["blocks"]``): they raise, naming
+ROADMAP §C20. The fp8-weight branch comes with a later slice.
 
 KV payloads keep the reference layout: (L, B, keep, KV, hd). The packed
 forwards return per-segment logits and the fresh KV gathered at
@@ -26,11 +36,13 @@ hd) cache in place, layer by layer, where the reference returns a new one.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import math
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, check_ported
+from repro_torch.configs.base import (ModelConfig, check_ported,
+                                      refuse_local_global)
 from repro_torch.core.hybrid_prefill import (chunked_map, last_token_logits,
                                              packed_last_logits)
 from repro_torch.models import layers as L
@@ -46,8 +58,20 @@ def _inputs(params: Dict, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     it in place, and must not write into the caller's ``embeds``."""
     dtype = L.torch_dtype(cfg.dtype)
     if embeds is None:
-        return L.embed_apply(params["embed"], tokens, dtype)
+        return _embed(params, cfg, tokens)
     return embeds.to(dtype=dtype, copy=True)
+
+
+def _embed(params: Dict, cfg: ModelConfig,
+           tokens: torch.Tensor) -> torch.Tensor:
+    """The token embedding; a local_global config (gemma2) scales it by
+    sqrt(d_model) rounded to the model dtype first (59.75 at gemma2-9b's
+    3584 in bf16), as the reference's ``jnp.asarray(..., dtype)`` does."""
+    dtype = L.torch_dtype(cfg.dtype)
+    x = L.embed_apply(params["embed"], tokens, dtype)
+    if cfg.local_global:
+        x *= torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
+    return x
 
 
 def head_weight(params: Dict, cfg: ModelConfig) -> torch.Tensor:
@@ -61,6 +85,22 @@ def layer_params(blocks: Dict, layer: int) -> Dict:
     """Layer ``layer``'s slice of the stacked block tree (views)."""
     return {k: (layer_params(v, layer) if isinstance(v, dict) else v[layer])
             for k, v in blocks.items()}
+
+
+def _layers(params: Dict, cfg: ModelConfig) -> Iterator[Tuple]:
+    """Each layer in the reference's order: (its block's parameters, its
+    attention window, its KV tree's name prefix, its index in that stack).
+    A local_global config runs ``num_layers // 2`` (local, global) pairs:
+    the local block with the sliding window, the global one with none."""
+    if cfg.local_global:
+        for i in range(cfg.num_layers // 2):
+            yield (layer_params(params["blocks_local"], i),
+                   cfg.sliding_window, "local_", i)
+            yield layer_params(params["blocks_global"], i), 0, "global_", i
+    else:
+        for i in range(cfg.num_layers):
+            yield (layer_params(params["blocks"], i), cfg.sliding_window,
+                   "", i)
 
 
 def mlp_layers(cfg: ModelConfig) -> int:
@@ -100,8 +140,15 @@ def _block_full(bp: Dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 def _kv_out(cfg: ModelConfig, B: int, keep: int, dtype, device) -> Dict:
     """Preallocated (L, B, keep, KV, hd) KV output (layer-wise discard:
-    each layer copies only its kept tokens in)."""
-    shape = (cfg.num_layers, B, keep, cfg.num_kv_heads, cfg.head_dim)
+    each layer copies only its kept tokens in); a local_global config's
+    {local_k, local_v, global_k, global_v}, each of L // 2 layers."""
+    rest = (B, keep, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.local_global:
+        half = cfg.num_layers // 2
+        return {f"{pre}{n}": torch.empty((half,) + rest, dtype=dtype,
+                                         device=device)
+                for pre in ("local_", "global_") for n in ("k", "v")}
+    shape = (cfg.num_layers,) + rest
     return {"k": torch.empty(shape, dtype=dtype, device=device),
             "v": torch.empty(shape, dtype=dtype, device=device)}
 
@@ -143,17 +190,15 @@ def forward_full(params: Dict, cfg: ModelConfig, *,
     else:
         keep = min(kv_keep, S)
     kv = _kv_out(cfg, B, keep, dtype, x.device) if keep > 0 else None
-    for layer in range(cfg.num_layers):
-        bp = layer_params(params["blocks"], layer)
+    for bp, window, pre, i in _layers(params, cfg):
         x, (k, v) = _block_full(bp, x, cfg, positions=positions,
-                                window=cfg.sliding_window, chunk=chunk,
-                                seg_ids=seg_ids)
+                                window=window, chunk=chunk, seg_ids=seg_ids)
         if kv is not None and kv_indices is not None:
-            kv["k"][layer].copy_(k.index_select(1, kv_indices))
-            kv["v"][layer].copy_(v.index_select(1, kv_indices))
+            kv[pre + "k"][i].copy_(k.index_select(1, kv_indices))
+            kv[pre + "v"][i].copy_(v.index_select(1, kv_indices))
         elif kv is not None:
-            kv["k"][layer].copy_(k[:, :keep])
-            kv["v"][layer].copy_(v[:, :keep])
+            kv[pre + "k"][i].copy_(k[:, :keep])
+            kv[pre + "v"][i].copy_(v[:, :keep])
         del k, v            # this layer's full-length K/V: gone before the
                             # next layer runs (layer-wise discard)
     return L.rms_norm(x, params["final_norm"]), kv
@@ -208,9 +253,10 @@ def prefill_with_prefix(params: Dict, cfg: ModelConfig, batch: Dict,
     attention offset by ``prefix_len``. ``prefix_kv`` holds (L, B,
     prefix_len, KV, hd) tensors. Returns last-token logits + the suffix KV
     to extend the cache with (up to ``kv_keep`` total tokens — suffix
-    discard).
+    discard). A local_global config raises (ROADMAP §C20).
     """
     check_ported(cfg)
+    refuse_local_global(cfg, "prefill_with_prefix")
     dtype = L.torch_dtype(cfg.dtype)
     x = _inputs(params, cfg, batch.get("tokens"), batch.get("embeds"))
     B, S, _ = x.shape
@@ -336,9 +382,11 @@ def prefill_packed_with_prefix(params: Dict, cfg: ModelConfig,
     matches N independent ``prefill_with_prefix`` calls.
 
     Returns (per-segment last-token logits (N, V) f32, fresh KV gathered at
-    ``kv_indices`` (L, 1, K, KV, hd), or None without ``kv_indices``).
+    ``kv_indices`` (L, 1, K, KV, hd), or None without ``kv_indices``). A
+    local_global config raises (ROADMAP §C20).
     """
     check_ported(cfg)
+    refuse_local_global(cfg, "prefill_packed_with_prefix")
     dtype = L.torch_dtype(cfg.dtype)
     x = L.embed_apply(params["embed"], tokens, dtype)
     B, S, _ = x.shape
@@ -386,15 +434,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed KV cache {"k", "v"}, each (L, batch, s, KV, hd) in
     ``cfg.dtype``: ``s = max_len``, or ``min(sliding_window, max_len)`` for
     a sliding-window config, whose cache is a ring buffer bounded by the
-    window. The local_global (gemma2) ring/global pair comes with that
-    family's slice."""
+    window. A local_global config (gemma2) gets the reference's pair:
+    {local_k, local_v} rings of ``min(sliding_window, max_len)`` slots and
+    {global_k, global_v} of ``max_len``, each of L // 2 layers."""
     check_ported(cfg)
     dev = resolve_device(device)
-    s = min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
-    shape = (cfg.num_layers, batch, s, cfg.num_kv_heads, cfg.head_dim)
     dtype = L.torch_dtype(cfg.dtype)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    rest = (batch, cfg.num_kv_heads, cfg.head_dim)
+
+    def zeros(n: int, s: int) -> torch.Tensor:
+        return torch.zeros((n, rest[0], s) + rest[1:], dtype=dtype,
+                           device=dev)
+
+    if cfg.local_global:
+        half, w = cfg.num_layers // 2, min(cfg.sliding_window, max_len)
+        return {"local_k": zeros(half, w), "local_v": zeros(half, w),
+                "global_k": zeros(half, max_len),
+                "global_v": zeros(half, max_len)}
+    s = min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
+    return {"k": zeros(cfg.num_layers, s), "v": zeros(cfg.num_layers, s)}
 
 
 def _block_decode(bp: Dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -417,16 +475,14 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     the step's) on the parameters' device. Returns (logits (B, V) f32,
     cache): ``cache`` is the same dict, its tensors updated in place with
     the token's k/v at slot ``position[0]`` (mod the window for a ring) in
-    every layer."""
+    every layer. A local_global config's local layers write their rings,
+    its global layers their full caches (the reference's pair scan)."""
     check_ported(cfg)
-    dtype = L.torch_dtype(cfg.dtype)
-    x = L.embed_apply(params["embed"], tokens[:, None], dtype)
-    ring = bool(cfg.sliding_window)
-    for layer in range(cfg.num_layers):
-        bp = layer_params(params["blocks"], layer)
+    x = _embed(params, cfg, tokens[:, None])
+    for bp, window, pre, i in _layers(params, cfg):
         x = _block_decode(bp, x, cfg, position=position,
-                          kc=cache["k"][layer], vc=cache["v"][layer],
-                          ring=ring)
+                          kc=cache[pre + "k"][i], vc=cache[pre + "v"][i],
+                          ring=bool(window))
     hidden = L.rms_norm(x, params["final_norm"])
     logits = last_token_logits(hidden, head_weight(params, cfg),
                                final_softcap=cfg.final_softcap)

@@ -1169,3 +1169,204 @@ def test_decode_chain_on_the_card_at_the_moe_configs(dev, arch):
     16-slot ring (its reduced window) that the 20 steps wrap."""
     window = reduce_config(get_config(arch)).sliding_window
     test_decode_chain_on_the_card_matches_the_cpu(dev, window, arch=arch)
+
+
+# ---- head_dim 96 (phi3-mini-3.8b) and 256 (gemma2-9b) ------------------------
+# phi3's 32 MHA heads of 96 (the tensor-core attention at 12 column pieces a
+# row, the GEMV decode at 3 packs a lane) and gemma2's 16/8 heads of 256
+# (the attention with its Q fragments re-read from shared memory and key
+# tiles scored in quarters; the tensor-core decode over a 198 KB ring), at
+# reduced head counts where the shape allows, bf16 (f32 attention stops at
+# head_dim 64)
+NEW_HEADS = [(8, 8, 96), (32, 32, 96), (4, 2, 256), (16, 8, 256)]
+
+
+@pytest.mark.parametrize("H,KV,d", NEW_HEADS)
+@pytest.mark.parametrize("B,Sq,Sk,kw", [
+    (1, 130, 130, dict()),                                 # causal, ragged
+    (1, 64, 1088, dict(q_offset=1024)),                    # a solo hit: split
+    (2, 100, 100, dict(window=33, softcap=50.0, kv_valid=90)),
+    (1, 40, 120, dict(causal=False)),
+    (1, 8, 8, dict(window=2, kv_valid=3)),                 # fully masked rows
+])
+def test_flash_attention_kernel_at_head_dim_96_and_256(dev, H, KV, d, B, Sq,
+                                                       Sk, kw):
+    dtype = torch.bfloat16
+    q = _randn(dev, B, Sq, H, d, dtype=dtype)
+    k = _randn(dev, B, Sk, KV, d, dtype=dtype, seed=1)
+    v = _randn(dev, B, Sk, KV, d, dtype=dtype, seed=2)
+    n0 = fa.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == n0 + 1
+    _close(got, fa.flash_attention_plain(q, k, v, **kw), dtype, ATTN_TOL)
+
+
+@pytest.mark.parametrize("H,KV,d", [(8, 8, 96), (4, 2, 256)])
+@pytest.mark.parametrize("S,window", [(1024, 256), (700, 100)])
+def test_dense_tiles_under_a_window_at_head_dim_96_and_256(dev, H, KV, d, S,
+                                                           window):
+    """The dense mode's executed-tile map under a window equals the plain
+    tile rule at the kernel's 64 x 64 tiles (gemma2's local layers)."""
+    dtype = torch.bfloat16
+    q = _randn(dev, 1, S, H, d, dtype=dtype)
+    k = _randn(dev, 1, S, KV, d, dtype=dtype, seed=1)
+    bq, bk = fa.tile_shape(dtype)
+    tmap = torch.empty((1, -(-S // bq), -(-S // bk)), dtype=torch.int32,
+                       device=dev)
+    got = fa.flash_attention(q, k, k, window=window, softcap=50.0,
+                             tile_map=tmap)
+    _close(got, fa.flash_attention_plain(q, k, k, window=window,
+                                         softcap=50.0), dtype, ATTN_TOL)
+    want = smoke.tile_rule(S, S, window=window, block_q=bq, block_k=bk)
+    assert torch.equal(tmap, want.to(dev))
+    assert int(tmap.sum()) < int(smoke.tile_rule(S, S, block_q=bq,
+                                                 block_k=bk).sum())
+
+
+@pytest.mark.parametrize("H,KV,d", [(8, 8, 96), (4, 2, 256)])
+@pytest.mark.parametrize("kw", [dict(), dict(window=200, softcap=50.0)],
+                         ids=["plain", "window_softcap"])
+def test_packed_modes_at_head_dim_96_and_256(dev, H, KV, d, kw):
+    """The segmented mode (a packed miss with a padding tail; under the
+    window, a segment past it) and the positioned mode (a packed hit over
+    prefixes the window cuts), each with its executed-tile map against the
+    plain rule."""
+    _check_segmented(dev, (300, 64, 400, 17, 120), 1000, H, KV, d, kw,
+                     torch.bfloat16)
+    _check_positioned(dev, (512, 384, 256, 512), (128, 96, 160, 128), 512,
+                      512, H, KV, d, kw, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,KV,d,kw", [
+    (8, 8, 96, dict()),                      # phi3: G 1, the GEMV kernel
+    (32, 32, 96, dict(softcap=30.0)),
+    (8, 4, 256, dict(softcap=50.0)),         # gemma2: G 2, tensor cores
+    (16, 8, 256, dict()),
+])
+def test_decode_attention_at_head_dim_96_and_256(dev, H, KV, d, kw, dtype):
+    """B 8 rows of an S 8,192 cache, ragged (rows ending in a tile, on and
+    past chunk edges, a ring's kv_len past S), on the kernel
+    ``kernel_rule`` picks."""
+    S = 8192
+    kv_len = [1, 65, 4000, S, 2049, 8191, 333, S + 5000]
+    q, k, v, n = _decode_inputs(dev, 8, S, H, KV, d, kv_len, dtype)
+    assert _plan(dev, q, k).kernel == da.kernel_rule(H // KV, dtype)
+    n0 = da.launches
+    got = da.decode_attention(q, k, v, n, **kw)
+    torch.cuda.synchronize()
+    assert da.launches == n0 + 1
+    _close(got, da.decode_attention_plain(q, k, v, n, **kw), dtype, DEC_TOL)
+
+
+def test_refused_widths_raise_before_any_launch(dev):
+    """head_dim 80 (ROADMAP §A6.4), f32 attention at 96 and 256, and
+    decode at 96 with G 2 in both dtypes raise, naming the rule, and launch
+    nothing."""
+    n0 = (fa.launches, da.launches)
+    bf = torch.bfloat16
+    for d, dtype in ((80, bf), (96, torch.float32), (256, torch.float32)):
+        q = _randn(dev, 1, 16, 4, d, dtype=dtype)
+        with pytest.raises(ValueError, match="rule of dtype and width"):
+            fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="A6.4"):
+        fa.flash_attention(*(_randn(dev, 1, 16, 4, 80, dtype=bf),) * 3)
+    for H, KV, d, dtype in ((4, 2, 96, bf), (4, 2, 96, torch.float32),
+                            (4, 4, 80, bf)):
+        q, k, v, n = _decode_inputs(dev, 2, 64, H, KV, d, [64, 3], dtype)
+        with pytest.raises(ValueError, match="rule of dtype and width"):
+            da.decode_attention(q, k, v, n)
+    assert (fa.launches, da.launches) == n0
+
+
+@pytest.mark.parametrize("check", [
+    test_engine_on_the_card_matches_the_cpu_engine,
+    test_packed_engine_on_the_card_matches_the_cpu_engine,
+], ids=["solo", "packed"])
+def test_engines_on_the_card_at_head_dim_96(dev, check):
+    """Both engines at phi3-mini-3.8b reduced to head_dim 96 (4 MHA heads):
+    the tensor-core attention at 96 in all three modes."""
+    check(dev, cfg=reduce_config(get_config("phi3-mini-3.8b"),
+                                 hybrid_chunk=0, head_dim=96))
+
+
+def test_decode_chain_on_the_card_at_head_dim_96(dev):
+    """The chain at phi3-mini-3.8b reduced to head_dim 96, in float32: the
+    GEMV decode kernel at 3 packs a lane."""
+    test_decode_chain_on_the_card_matches_the_cpu(
+        dev, 0, arch="phi3-mini-3.8b", widths=dict(head_dim=96))
+
+
+def _gemma2(dtype: str, window: int = 8):
+    return reduce_config(get_config("gemma2-9b"), hybrid_chunk=0,
+                         head_dim=256, sliding_window=window, dtype=dtype,
+                         param_dtype=dtype)
+
+
+def test_gemma2_forwards_on_the_card_match_the_cpu(dev):
+    """gemma2-9b reduced to head_dim 256 and an 8-token window, bf16:
+    ``prefill`` past the window and ``prefill_packed`` on the card against
+    the same forwards on the CPU (the plain versions), the kept KV pair
+    included, within 5e-2 (bf16 forwards, as the CPU twins hold them: the
+    KV of the second pair carries the first pair's rounding); 2L+1/L/L
+    launches, every local layer's window and both softcaps in the
+    kernel."""
+    cfg = _gemma2("bfloat16")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gparams = _to(params, dev)
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 48)))
+    n0 = (rn.launches, fa.launches, fm.launches)
+    got, got_kv = ttfm.prefill(gparams, cfg, {"tokens": toks.to(dev)},
+                               kv_keep=40)
+    torch.cuda.synchronize()
+    L_ = cfg.num_layers
+    assert tuple(a - b for a, b in zip(
+        (rn.launches, fa.launches, fm.launches), n0)) == (2 * L_ + 1, L_, L_)
+    want, want_kv = ttfm.prefill(params, cfg, {"tokens": toks}, kv_keep=40)
+    torch.testing.assert_close(got.cpu(), want, atol=5e-2, rtol=5e-2)
+    assert sorted(got_kv) == ["global_k", "global_v", "local_k", "local_v"]
+    for name in got_kv:          # a forward's output: the logits' limit
+        torch.testing.assert_close(got_kv[name].cpu().float(),
+                                   want_kv[name].float(), atol=5e-2,
+                                   rtol=5e-2)
+    lay = ttfm.packed_layout([0, 0, 0], [30, 20, 9], 64, smax=30)
+    ptoks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 64)))
+    args = (lay["seg_ids"], lay["positions"], lay["last_indices"])
+    want, _ = ttfm.prefill_packed(params, cfg, ptoks, *args)
+    got, _ = ttfm.prefill_packed(gparams, cfg, ptoks.to(dev),
+                                 *(a.to(dev) for a in args))
+    torch.testing.assert_close(got.cpu(), want, atol=5e-2, rtol=5e-2)
+
+
+def test_gemma2_decode_chain_on_the_card_matches_the_cpu(dev):
+    """The ring/global pair through 20 steps (the 8-slot local rings wrap
+    twice) in float32: logits within 1e-4 of the CPU chain, 2L+1/L/L
+    launches a step (flash decoding at head_dim 256, G 2, softcap 50), and
+    the four caches alike."""
+    from repro_torch.models.model import build
+    cfg = _gemma2("float32")
+    api = build(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gparams = _to(params, dev)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 20)))
+    caches = {"cpu": api.init_cache(2, 24, device="cpu"),
+              "gpu": api.init_cache(2, 24, device=dev)}
+    assert caches["gpu"]["local_k"].shape[2] == 8
+    for t in range(20):
+        pos = torch.full((2,), t, dtype=torch.int32)
+        want, _ = api.decode_step(params, toks[:, t], caches["cpu"], pos)
+        n0 = (rn.launches, da.launches, fm.launches, fa.launches)
+        got, _ = api.decode_step(gparams, toks[:, t].to(dev), caches["gpu"],
+                                 pos.to(dev))
+        torch.cuda.synchronize()
+        L_ = cfg.num_layers
+        assert tuple(a - b for a, b in zip(
+            (rn.launches, da.launches, fm.launches, fa.launches), n0)) == (
+            2 * L_ + 1, L_, L_, 0)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    for name in caches["cpu"]:
+        torch.testing.assert_close(caches["gpu"][name].cpu(),
+                                   caches["cpu"][name], atol=1e-5, rtol=1e-5)

@@ -6,8 +6,9 @@ mode, through ``repro.kernels.ops.decode_attention``) and to
 with the dead cache slots filled with large finite values so that a mask
 fault shows. The decode layers, ``init_cache`` and ``decode_step`` are held
 to ``repro.models``' at the reduced qwen1.5-0.5b, granite-3-8b,
-llama3.1-8b, internvl2-2b, musicgen-large, mixtral-8x22b and
-llama4-scout-17b-a16e configs (the ``arch`` fixture's params; granite and
+llama3.1-8b, internvl2-2b, musicgen-large, mixtral-8x22b,
+llama4-scout-17b-a16e and phi3-mini-3.8b (reduced to its head_dim of 96)
+configs (the ``arch`` fixture's params; granite and
 llama have 4 query heads per kv head, internvl2 2, musicgen none shared,
 and no qkv bias; the last five an untied LM head; mixtral and scout
 mixtures of experts, whose decode runs each step's tokens through the
@@ -20,6 +21,10 @@ priced per forward call (ROADMAP §C17): a decode step never fills an
 expert, where a prefill over the same tokens may drop assignments, so a
 decode step is held to the port's own prefill only where that prefill
 dropped none (the chain itself is held to the reference's at every step).
+gemma2-9b (reduced to its head_dim of 256 and an 8-token window) runs the
+reference's ring/global pair: 8-slot local rings beside full global caches,
+its chains held to the reference's in both dtypes and to the port's own
+prefill in float32.
 """
 import dataclasses
 import functools
@@ -95,6 +100,8 @@ def _caches(rng, B, S, KV, d, kv_len):
     (64, 4, 4, 32, 64),
     (100, 8, 2, 16, 32),             # ragged cache length
     (96, 8, 2, 128, 32),             # granite: head_dim 128, G = 4
+    (96, 4, 4, 96, 32),              # phi3: head_dim 96, G = 1
+    (100, 4, 2, 256, 32),            # gemma2: head_dim 256, G = 2, ragged
 ])
 def test_decode_attention_plain_matches_pallas_and_ref(S, H, KV, d, block_s,
                                                        dtype, softcap):
@@ -160,12 +167,18 @@ def test_split_rule_covers_the_cache(rows, S, per_sm):
 # ---- decode layers -------------------------------------------------------------
 QWEN = "qwen1.5-0.5b"
 ARCHS = (QWEN, "granite-3-8b", "llama3.1-8b", "internvl2-2b",
-         "musicgen-large", "mixtral-8x22b", "llama4-scout-17b-a16e")
+         "musicgen-large", "mixtral-8x22b", "llama4-scout-17b-a16e",
+         "phi3-mini-3.8b")
+# widths a reduced config keeps from its published one: phi3's head_dim
+# 96, gemma2's 256
+WIDTHS = {"phi3-mini-3.8b": dict(head_dim=96),
+          "gemma2-9b": dict(head_dim=256)}
+GEMMA2 = "gemma2-9b"
 
 
 def _configs(arch: str, window: int = 0, dtype: str = "float32"):
     over = dict(hybrid_chunk=0, dtype=dtype, param_dtype=dtype,
-                sliding_window=window)
+                sliding_window=window, **WIDTHS.get(arch, {}))
     jcfg = j_reduce_config(j_get_config(arch), **over)
     tcfg = reduce_config(get_config(arch), **over)
     return jcfg, tcfg
@@ -427,7 +440,7 @@ def test_build_fields_and_refusals():
         assert callable(getattr(api, name))
     with pytest.raises(NotImplementedError, match="A8"):
         api.train_loss({}, {})
-    for over in (dict(local_global=True), dict(family="hybrid")):
+    for over in (dict(family="ssm"), dict(family="hybrid")):
         with pytest.raises(NotImplementedError):
             build(dataclasses.replace(tcfg, **over))
 
@@ -444,3 +457,54 @@ def test_build_casts_parameters_to_the_config_dtype(tree, arch):
     a, _ = api.decode_step(p32, toks, api.init_cache(2, 4, device="cpu"), pos)
     b, _ = api.decode_step(p16, toks, api.init_cache(2, 4, device="cpu"), pos)
     assert torch.equal(a, b)
+
+
+# ---- gemma2-9b: the ring/global cache pair -------------------------------------
+@pytest.mark.parametrize("max_len", [24, 4])
+def test_gemma2_init_cache_matches_reference(max_len):
+    """The pair: local rings of min(window, max_len) slots, global caches
+    of max_len, each of L // 2 layers."""
+    jcfg, tcfg = _configs(GEMMA2, window=8)
+    want = jtfm.init_cache(jcfg, 2, max_len)
+    got = ttfm.init_cache(tcfg, 2, max_len, device="cpu")
+    assert sorted(got) == sorted(want) == [
+        "global_k", "global_v", "local_k", "local_v"]
+    for name in got:
+        assert tuple(got[name].shape) == want[name].shape
+        assert not got[name].any()
+    assert got["local_k"].shape[2] == min(8, max_len)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemma2_decode_chain_matches_reference(dtype):
+    """20 steps from an empty cache (the 8-slot local rings wrap twice, the
+    24-slot global caches fill to 20): every step's logits against the
+    reference's jitted ``decode_step`` (float32 1e-4; bfloat16 2e-2 scaled
+    by the logits' std, as the dense chains), the four caches at float32;
+    no kernel launches on the CPU."""
+    n0 = (rn.launches, fa.launches, fm.launches, da.launches)
+    _, _, _, jlogs, tlogs, jcache, cache = _chains(GEMMA2, 8, dtype)
+    assert (rn.launches, fa.launches, fm.launches, da.launches) == n0
+    tol = F32
+    if dtype == "bfloat16":
+        scale = max(1.0, float(np.std(jlogs[0])) / BF16_REF_STD)
+        tol = {k: v * scale for k, v in BF16.items()}
+    for t, (got, want) in enumerate(zip(tlogs, jlogs)):
+        np.testing.assert_allclose(got, want, err_msg=f"step {t}", **tol)
+    assert (cache["local_k"].shape[2], cache["global_k"].shape[2]) == (
+        8, STEPS + 4)
+    if dtype == "float32":
+        for n in cache:
+            np.testing.assert_allclose(_np(cache[n]), _np(jcache[n]), **F32)
+
+
+def test_gemma2_decode_chain_matches_own_prefill():
+    """Each step's logits equal the port's prefill of the sequence up to
+    that token: the local layers' windowed prefill attention against their
+    rings, the global layers' against their full caches."""
+    toks, tapi, tparams, _, tlogs, _, _ = _chains(GEMMA2, 8, "float32")
+    tt = torch.from_numpy(toks)
+    for t in range(STEPS):
+        want, _ = tapi.prefill(tparams, {"tokens": tt[:, :t + 1]})
+        np.testing.assert_allclose(tlogs[t], _np(want), err_msg=f"step {t}",
+                                   **F32)

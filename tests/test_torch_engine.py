@@ -3,7 +3,8 @@ JAX package's, plus the port's package rules.
 
 The engines run the reduced qwen1.5-0.5b, granite-3-8b, llama3.1-8b,
 internvl2-2b (vlm), musicgen-large (audio), mixtral-8x22b and
-llama4-scout-17b-a16e (moe) configs (the ``setup`` fixture's params;
+llama4-scout-17b-a16e (moe) configs, and phi3-mini-3.8b reduced to its
+head_dim of 96 (4 MHA heads, an untied head) (the ``setup`` fixture's params;
 granite and llama have 4 query heads per kv head, internvl2 2, musicgen
 none shared, and no qkv bias; the last five an untied LM head) on bridged
 weights, in bfloat16, the MoE configs in float32 (a bf16 route flip may
@@ -47,13 +48,17 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 SCORE_GATE = 2e-2
 YES, NO = 5, 9
 ARCHS = ("qwen1.5-0.5b", "granite-3-8b", "llama3.1-8b", "internvl2-2b",
-         "musicgen-large", "mixtral-8x22b", "llama4-scout-17b-a16e")
+         "musicgen-large", "mixtral-8x22b", "llama4-scout-17b-a16e",
+         "phi3-mini-3.8b")
+# widths a reduced config keeps from its published one: phi3's head_dim 96
+WIDTHS = {"phi3-mini-3.8b": dict(head_dim=96)}
 
 
 @pytest.fixture(scope="module", params=ARCHS)
 def setup(request):
     dt = "float32" if get_config(request.param).is_moe else "bfloat16"
-    over = dict(hybrid_chunk=0, dtype=dt, param_dtype=dt)
+    over = dict(hybrid_chunk=0, dtype=dt, param_dtype=dt,
+                **WIDTHS.get(request.param, {}))
     jcfg = j_reduce_config(j_get_config(request.param), **over)
     tcfg = reduce_config(get_config(request.param), **over)
     jparams = materialize(jax.random.PRNGKey(0), build(jcfg).defs(),

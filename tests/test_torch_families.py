@@ -17,8 +17,10 @@ layer's twins (``tests/test_torch_moe.py``): what those twins do not hold.
   Tolerances (|port - reference| <= atol + rtol |reference|): float32
   1e-4 (summation order only); bfloat16 5e-2, as ``tests/test_torch_
   packed.py`` and ``tests/test_packed_prefill.py`` hold bf16 forwards.
-- Families the port does not run (local_global, SSM, hybrid) raise at
-  the engine, the model API and ``param_defs``, naming their ROADMAP items.
+- Families the port does not run (SSM, hybrid) raise at the engine, the
+  model API and ``param_defs``, naming their ROADMAP items; a local_global
+  config (gemma2) raises at the engine and the hit forwards, naming
+  ROADMAP §C20, beside the reference engine's own failure on it.
 - The launcher builds a pool of the paper's model at reduced width.
 """
 import dataclasses
@@ -64,11 +66,19 @@ FULL = {
     "llama4-scout-17b-a16e": (48, 5120, 40, 8, 128, 8192, 202_048, "moe",
                               False, 107_769_861_120, 17_172_894_720,
                               196_608),
+    "phi3-mini-3.8b": (32, 3072, 32, 32, 96, 8192, 32_064, "dense", False,
+                       3_821_079_552, 3_821_079_552, 393_216),
+    "gemma2-9b": (42, 3584, 16, 8, 256, 14_336, 256_000, "dense", True,
+                  9_241_404_928, 9_241_404_928, 344_064),
 }
-# the MoE fields, by hand: (experts, experts a token, shared expert,
-# sliding window)
+# the MoE and attention fields, by hand: (experts, experts a token, shared
+# expert, sliding window)
 MOE = {"mixtral-8x22b": (8, 2, False, 4096),
-       "llama4-scout-17b-a16e": (16, 1, True, 0)}
+       "llama4-scout-17b-a16e": (16, 1, True, 0),
+       "gemma2-9b": (0, 0, False, 4096)}
+# gemma2's local/global fields, by hand: (local_global, attention softcap,
+# final softcap)
+LOCAL_GLOBAL = {"gemma2-9b": (True, 50.0, 30.0)}
 
 
 def _configs(arch: str, dtype: str, chunk: int = 16):
@@ -135,6 +145,8 @@ def test_config_copy_and_quantities_match_reference(arch):
             full.tie_embeddings) == (L, D, H, KV, hd, F, V, family, tied)
     assert (full.num_experts, full.num_experts_per_tok, full.shared_expert,
             full.sliding_window) == MOE.get(arch, (0, 0, False, 0))
+    assert (full.local_global, full.attn_softcap,
+            full.final_softcap) == LOCAL_GLOBAL.get(arch, (False, 0.0, 0.0))
     assert full.param_count() == ref.param_count() == params
     assert full.active_param_count() == ref.active_param_count() == active
     assert full.kv_bytes_per_token() == ref.kv_bytes_per_token() == kv
@@ -185,23 +197,56 @@ def test_embeds_input_matches_reference(model):
 # ---- gates and the launcher --------------------------------------------------
 
 @pytest.mark.parametrize("over,item", [
-    (dict(local_global=True), "local_global"),
-    (dict(family="ssm"), "SSM and hybrid"),
-    (dict(family="hybrid", attn_every=2), "SSM and hybrid")],
+    (dict(local_global=True), "ROADMAP §C20"),
+    (dict(family="ssm"), "ROADMAP A6, SSM and hybrid"),
+    (dict(family="hybrid", attn_every=2), "ROADMAP A6, SSM and hybrid")],
     ids=["local_global", "ssm", "hybrid"])
 def test_unported_families_raise_naming_their_roadmap_item(over, item):
+    """SSM and hybrid raise at the engine, the model API and
+    ``param_defs``; a local_global config runs the model API (its prefill
+    and decode twins are in ``tests/test_torch_{model,packed,decode}.py``)
+    but raises at the engine and the hit forwards, naming §C20."""
     _, tcfg = _configs("llama3.1-8b", "float32")
     tparams = params_from_numpy(_arch_tree("llama3.1-8b"), tcfg, device="cpu")
     cfg = dataclasses.replace(tcfg, **over)
-    for fn in (lambda: PrefillOnlyEngine(cfg, tparams, device="cpu"),
-               lambda: build(cfg), lambda: param_defs(cfg),
-               lambda: ttfm.prefill(tparams, cfg, {"tokens": torch.zeros(
-                   (1, 4), dtype=torch.long)})):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP A6, {item}"):
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    fns = [lambda: PrefillOnlyEngine(cfg, tparams, device="cpu"),
+           lambda: ttfm.prefill_with_prefix(tparams, cfg, {"tokens": toks},
+                                            {}, 4)]
+    if over.get("family"):
+        fns += [lambda: build(cfg), lambda: param_defs(cfg),
+                lambda: ttfm.prefill(tparams, cfg, {"tokens": toks})]
+    else:
+        assert build(cfg).cfg is cfg and ("blocks_local",) in {
+            p[:1] for p in param_defs(cfg)}
+    for fn in fns:
+        with pytest.raises(NotImplementedError, match=item):
             fn()
     if over.get("family"):
         with pytest.raises(NotImplementedError, match="ROADMAP A6"):
             cfg.param_count()
+
+
+def test_the_reference_engine_fails_on_gemma2_where_the_port_refuses():
+    """ROADMAP §C20: the reference's engine takes a local_global config
+    (its family gate passes dense) and fails at its first step that keeps
+    KV, reading ``new_kv["k"]`` from a {local_k, ...} tree (a
+    ``KeyError``); the port's engine refuses the config when it is made,
+    with ``NotImplementedError`` naming §C20."""
+    over = dict(hybrid_chunk=0, head_dim=256, sliding_window=8)
+    jcfg = j_reduce_config(j_get_config("gemma2-9b"), **over)
+    tcfg = reduce_config(get_config("gemma2-9b"), **over)
+    tree = _np_tree(jcfg)
+    ref = jengine.PrefillOnlyEngine(
+        jcfg, jax.tree_util.tree_map(jnp.asarray, tree),
+        jengine.EngineConfig(cache_capacity_tokens=4096))
+    toks = np.random.default_rng(3).integers(0, tcfg.vocab_size, 48).tolist()
+    ref.submit(toks, allowed_tokens=(YES, NO))
+    with pytest.raises(KeyError):
+        ref.step()
+    with pytest.raises(NotImplementedError, match="§C20"):
+        PrefillOnlyEngine(tcfg, params_from_numpy(tree, tcfg, device="cpu"),
+                          device="cpu")
 
 
 def test_make_pool_serves_the_papers_model_at_reduced_width():

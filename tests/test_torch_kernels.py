@@ -76,6 +76,8 @@ def test_rmsnorm_plain_matches_pallas(T, D, dtype):
     (48, 48, 4, 1, 32, False, 0, 20.0),      # non-causal, GQA, softcap
     (64, 64, 8, 2, 128, True, 0, 0.0),       # granite: head_dim 128, G = 4
     (70, 70, 8, 2, 128, True, 13, 30.0),     # head_dim 128, SWA, softcap
+    (64, 64, 4, 4, 96, True, 0, 0.0),        # phi3: head_dim 96, MHA
+    (70, 70, 4, 2, 256, True, 13, 50.0),     # gemma2: 256, G 2, SWA, cap
 ])
 def test_flash_attention_plain_matches_pallas(Sq, Sk, H, KV, d, causal,
                                               window, softcap, dtype):
@@ -193,18 +195,24 @@ def test_cpu_tensors_never_launch_and_other_devices_raise():
 
 @pytest.mark.parametrize("d,dtype,built", [
     (32, torch.bfloat16, True), (64, torch.bfloat16, True),
-    (128, torch.bfloat16, True), (96, torch.bfloat16, False),
-    (256, torch.bfloat16, False), (32, torch.float32, True),
+    (128, torch.bfloat16, True), (96, torch.bfloat16, True),
+    (256, torch.bfloat16, True), (32, torch.float32, True),
     (64, torch.float32, True), (128, torch.float32, False),
+    (96, torch.float32, False), (256, torch.float32, False),
+    (80, torch.bfloat16, False), (80, torch.float32, False),
 ])
 def test_flash_attention_width_rule(d, dtype, built):
-    """The head dims each dtype's kernel is built for: a rule of dtype and
-    width that raises, naming the rule, before any launch."""
+    """The head dims each dtype's kernel is built for (bf16: 32, 64, 96,
+    128, 256; f32: 32, 64): a rule of dtype and width that raises, naming
+    the rule, before any launch; head_dim 80 names ROADMAP §A6.4."""
     if built:
         fa.width_rule(d, dtype)
         return
     with pytest.raises(ValueError, match="rule of dtype and width"):
         fa.width_rule(d, dtype)
+    if d == 80:
+        with pytest.raises(ValueError, match="§A6.4"):
+            fa.width_rule(d, dtype)
 
 
 @pytest.mark.parametrize("D,dtype,built", [
@@ -225,19 +233,27 @@ def test_fused_mlp_width_rule(D, dtype, built):
         fm.width_rule(D, dtype)
 
 
-@pytest.mark.parametrize("d,dtype,built", [
-    (32, torch.bfloat16, True), (128, torch.bfloat16, True),
-    (128, torch.float32, True), (64, torch.float32, True),
-    (96, torch.bfloat16, False), (256, torch.float32, False),
+@pytest.mark.parametrize("d,dtype,G,built", [
+    (32, torch.bfloat16, 1, True), (128, torch.bfloat16, 4, True),
+    (128, torch.float32, 8, True), (64, torch.float32, 1, True),
+    (96, torch.bfloat16, 1, True), (256, torch.float32, 2, True),
+    (256, torch.bfloat16, 8, True), (96, torch.float32, 1, True),
+    (96, torch.bfloat16, 2, False), (96, torch.float32, 2, False),
+    (80, torch.bfloat16, 1, False), (48, torch.float32, 1, False),
 ])
-def test_decode_attention_width_rule(d, dtype, built):
-    """Flash decoding is built for head dims 32, 64 and 128 in both dtypes;
-    any other width raises, naming the rule, before any launch."""
+def test_decode_attention_width_rule(d, dtype, G, built):
+    """Flash decoding is built for head dims 32, 64, 96, 128 and 256 in
+    both dtypes, with head_dim 96 at G 1 only (the tensor-core kernel does
+    not tile 12 column pieces a row); anything else raises, naming the
+    rule, before any launch; head_dim 80 names ROADMAP §A6.4."""
     if built:
-        da.width_rule(d, dtype)
+        da.width_rule(d, dtype, G)
         return
     with pytest.raises(ValueError, match="rule of dtype and width"):
-        da.width_rule(d, dtype)
+        da.width_rule(d, dtype, G)
+    if d == 80:
+        with pytest.raises(ValueError, match="§A6.4"):
+            da.width_rule(d, dtype, G)
 
 
 def test_constants_match_reference():

@@ -11,11 +11,22 @@ kv head, no qkv bias), at granite reduced to head_dim 128 (d_model 256,
 head, an untied LM head), at the reduced internvl2-2b (vlm: 2 query
 heads per kv head) and musicgen-large (audio: MHA) configs, and at the
 reduced MoE configs mixtral-8x22b (4 experts, top-2, a 16-token sliding
-window) and llama4-scout-17b-a16e (4 experts, top-1, a shared expert):
+window) and llama4-scout-17b-a16e (4 experts, top-1, a shared expert),
+and at phi3-mini-3.8b reduced to its head_dim of 96 (4 MHA heads):
 logits and kept KV within 1e-4 (different summation orders over a 4-layer
 model with O(1) activations; the MoE routes are equal at float32).
+
+gemma2-9b (local_global) is held through the model API only, as the
+reference runs it: reduced to its head_dim of 256 (4/2 heads) and an
+8-token window, two (local, global) pairs, both softcaps and the
+sqrt(d_model) embedding scale, ``prefill`` past the window against the
+reference's within 1e-4 (logits and the {local, global} KV pair), the
+twin of ``tests/test_model_consistency.py``'s window check, the
+parameter bridge over ``blocks_local`` and ``blocks_global``, and the hit
+forwards' refusal (ROADMAP §C20) beside the reference's own failure.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -36,13 +47,19 @@ from repro_torch.kernels import fused_mlp as fm
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.models import layers as tl
 from repro_torch.models import transformer as ttfm
-from repro_torch.models.params import init_params, params_from_numpy
+from repro_torch.models.params import (init_params, param_defs,
+                                      params_from_numpy)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCHS = ("qwen1.5-0.5b", "granite-3-8b", "llama3.1-8b", "internvl2-2b",
-         "musicgen-large", "mixtral-8x22b", "llama4-scout-17b-a16e")
+         "musicgen-large", "mixtral-8x22b", "llama4-scout-17b-a16e",
+         "phi3-mini-3.8b")
 # granite's head_dim, 4 query heads per kv head, at a CPU-test width
 HD128 = dict(d_model=256, num_heads=8, num_kv_heads=2, head_dim=128)
+# phi3's and gemma2's head dims at the reduced configs' 4 heads
+HD96 = dict(head_dim=96)
+GEMMA2 = "gemma2-9b"
+GEMMA2_WIDTHS = dict(head_dim=256, sliding_window=8)
 
 
 def _configs(chunk: int, arch: str = "qwen1.5-0.5b", **widths):
@@ -79,10 +96,10 @@ def _np(x) -> np.ndarray:
     (16, "granite-3-8b", {}), (0, "granite-3-8b", HD128),
     (16, "llama3.1-8b", {}), (16, "internvl2-2b", {}),
     (16, "musicgen-large", {}), (16, "mixtral-8x22b", {}),
-    (16, "llama4-scout-17b-a16e", {})],
+    (16, "llama4-scout-17b-a16e", {}), (16, "phi3-mini-3.8b", HD96)],
     ids=["chunk0", "chunk16", "granite-chunk16", "granite-hd128-chunk0",
          "llama-chunk16", "internvl2-chunk16", "musicgen-chunk16",
-         "mixtral-chunk16", "scout-chunk16"])
+         "mixtral-chunk16", "scout-chunk16", "phi3-hd96-chunk16"])
 def model(request):
     chunk, arch, widths = request.param
     jcfg, tcfg = _configs(chunk, arch, **widths)
@@ -93,7 +110,7 @@ def model(request):
 
 
 def test_config_copy_matches_reference():
-    for arch in ARCHS:
+    for arch in ARCHS + (GEMMA2,):
         for chunk in (0, 2048):
             jcfg, tcfg = _configs(chunk, arch)
             assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
@@ -249,3 +266,139 @@ def test_cpu_forwards_launch_no_kernel(model):
     toks = torch.zeros((1, 32), dtype=torch.long)
     ttfm.prefill(tparams, tcfg, {"tokens": toks}, kv_keep=16)
     assert (rn.launches, fa.launches, fm.launches) == (0, 0, 0)
+
+
+# ---- gemma2-9b: the local/global pair through the model API ------------------
+@pytest.fixture(scope="module", params=[0, 16], ids=["chunk0", "chunk16"])
+def gemma(request):
+    jcfg, tcfg = _configs(request.param, GEMMA2, **GEMMA2_WIDTHS)
+    tree = _np_tree(jcfg)
+    return (jcfg, tcfg, jax.tree_util.tree_map(jnp.asarray, tree),
+            params_from_numpy(tree, tcfg, device="cpu"))
+
+
+@pytest.mark.parametrize("S,keep", [(48, 32), (40, 0), (24, 64)])
+def test_gemma2_prefill_matches_reference(gemma, S, keep):
+    """Every S is past the 8-token window: the local layers mask, the
+    global ones do not; logits (both softcaps) and the kept KV pair within
+    1e-4 of the reference's."""
+    jcfg, tcfg, jparams, tparams = gemma
+    rng = np.random.default_rng(13)
+    toks = rng.integers(0, tcfg.vocab_size, (2, S)).astype(np.int32)
+    want, want_kv = jtfm.prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)},
+                                 kv_keep=keep)
+    got, got_kv = ttfm.prefill(tparams, tcfg,
+                               {"tokens": torch.from_numpy(toks).long()},
+                               kv_keep=keep)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    assert np.abs(_np(got)).max() <= tcfg.final_softcap
+    if keep == 0:
+        assert got_kv is None and want_kv is None
+        return
+    assert sorted(got_kv) == sorted(want_kv) == [
+        "global_k", "global_v", "local_k", "local_v"]
+    for name in got_kv:
+        assert tuple(got_kv[name].shape) == want_kv[name].shape == (
+            tcfg.num_layers // 2, 2, min(keep, S), tcfg.num_kv_heads, 256)
+        np.testing.assert_allclose(_np(got_kv[name]), _np(want_kv[name]),
+                                   **TOL)
+
+
+def test_gemma2_local_global_window_matters(gemma):
+    """Twin of ``tests/test_model_consistency.py``'s: a change of the first
+    token moves the last token's logits (the global layers see it) while
+    the outputs stay finite; both runs equal the reference's. Past the
+    window a local layer's output at the last token ignores the first
+    token: the layer's attention equals one over the window alone."""
+    jcfg, tcfg, jparams, tparams = gemma
+    S = 32
+    toks = np.random.default_rng(12).integers(0, tcfg.vocab_size, (1, S))
+    toks2 = toks.copy()
+    toks2[0, 0] = (toks[0, 0] + 1) % tcfg.vocab_size
+    got = []
+    for t in (toks, toks2):
+        want, _ = jtfm.prefill(jparams, jcfg, {"tokens": jnp.asarray(t)})
+        out, _ = ttfm.prefill(tparams, tcfg, {"tokens": torch.from_numpy(t)})
+        assert torch.isfinite(out).all()
+        np.testing.assert_allclose(_np(out), _np(want), **TOL)
+        got.append(_np(out))
+    assert not np.allclose(got[0], got[1])
+    rng = np.random.default_rng(14)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, S, n, 256)).astype(np.float32)) for n in (4, 2, 2))
+    full = tl.attention(q, k, v, window=8, softcap=50.0)
+    k2 = k.clone()
+    k2[:, 0] += 1.0
+    moved = tl.attention(q, k2, v, window=8, softcap=50.0)
+    assert torch.equal(full[:, 8:], moved[:, 8:])
+    assert not torch.equal(full[:, :8], moved[:, :8])
+
+
+def test_gemma2_embedding_scale_rounds_to_the_model_dtype():
+    """sqrt(d_model) is rounded to the compute dtype before it scales the
+    embedding, as the reference's ``jnp.asarray(..., dtype)``: 59.75 at
+    gemma2-9b's 3584 in bfloat16."""
+    full = get_config(GEMMA2)
+    scale = torch.tensor(math.sqrt(full.d_model), dtype=torch.bfloat16)
+    assert scale.item() == 59.75 == float(
+        jnp.asarray(math.sqrt(full.d_model), jnp.bfloat16))
+    jcfg, tcfg = _configs(0, GEMMA2, **GEMMA2_WIDTHS)
+    tree = _np_tree(jcfg)
+    tparams = params_from_numpy(tree, tcfg, device="cpu")
+    toks = torch.tensor([[3, 7, 11]])
+    x = ttfm._inputs(tparams, tcfg, toks, None)
+    want = tparams["embed"]["tok"][toks] * math.sqrt(tcfg.d_model)
+    torch.testing.assert_close(x, want, atol=1e-6, rtol=1e-6)
+    # embeds in place of tokens are not scaled (the reference's rule)
+    assert torch.equal(ttfm._inputs(tparams, tcfg, None, x), x)
+
+
+def test_gemma2_params_from_numpy_carries_the_pair():
+    """``param_defs`` makes ``blocks_local`` and ``blocks_global`` of
+    ``num_layers // 2`` blocks each (21 at the published 42), as the
+    reference's ``model_defs``; the bridge carries both stacks, and a tree
+    without one is refused; ``init_params`` draws the pair."""
+    defs = param_defs(get_config(GEMMA2))
+    assert {p[0] for p in defs} == {"embed", "blocks_local",
+                                    "blocks_global", "final_norm"}
+    assert defs[("blocks_local", "attn", "wq")][0] == (21, 3584, 16 * 256)
+    jcfg, tcfg = _configs(0, GEMMA2, **GEMMA2_WIDTHS)
+    tree = _np_tree(jcfg)
+    tparams = params_from_numpy(tree, tcfg, device="cpu")
+    for stack in ("blocks_local", "blocks_global"):
+        np.testing.assert_array_equal(
+            tparams[stack]["mlp"]["w_up"].numpy(),
+            tree[stack]["mlp"]["w_up"])
+    ref = jax.tree_util.tree_map(lambda a: tuple(a.shape), tree)
+    got = init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    assert jax.tree_util.tree_map(lambda t: tuple(t.shape), got) == ref
+    del tree["blocks_global"]
+    with pytest.raises(ValueError, match="blocks_global"):
+        params_from_numpy(tree, tcfg, device="cpu")
+
+
+def test_gemma2_hit_forwards_raise_where_the_reference_fails(gemma):
+    """The prefix-cache hit forwards take no local_global config: the
+    reference's scan ``params["blocks"]``, which its tree lacks (a
+    ``KeyError``); the port raises ``NotImplementedError`` naming ROADMAP
+    §C20 before touching the parameters."""
+    jcfg, tcfg, jparams, tparams = gemma
+    toks = np.random.default_rng(2).integers(0, tcfg.vocab_size, (1, 24))
+    _, jkv = jtfm.prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)},
+                          kv_keep=16)
+    with pytest.raises(KeyError):
+        jtfm.prefill_with_prefix(jparams, jcfg,
+                                 {"tokens": jnp.asarray(toks[:, 16:])},
+                                 jkv, 16)
+    _, kv = ttfm.prefill(tparams, tcfg, {"tokens": torch.from_numpy(toks)},
+                         kv_keep=16)
+    with pytest.raises(NotImplementedError, match="§C20"):
+        ttfm.prefill_with_prefix(tparams, tcfg,
+                                 {"tokens": torch.from_numpy(toks[:, 16:])},
+                                 kv, 16)
+    with pytest.raises(NotImplementedError, match="§C20"):
+        ttfm.prefill_packed_with_prefix(
+            tparams, tcfg, torch.zeros((1, 8), dtype=torch.long),
+            torch.zeros((1, 8), dtype=torch.int32), torch.tensor([7]), kv,
+            torch.zeros((1, 16), dtype=torch.int32),
+            torch.zeros((1, 8), dtype=torch.long))

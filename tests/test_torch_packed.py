@@ -9,13 +9,16 @@ package, on the CPU.
 - Model layer: ``prefill_packed`` and ``prefill_packed_with_prefix`` against
   the JAX functions in float32 at the reduced qwen1.5-0.5b, granite-3-8b,
   llama3.1-8b, internvl2-2b, musicgen-large, mixtral-8x22b and
-  llama4-scout-17b-a16e configs (the ``model`` fixture's params; granite
-  and llama have 4 query heads per kv head, internvl2 2, musicgen none
-  shared; the last five an untied LM head; mixtral and scout mixtures of
-  experts).
+  llama4-scout-17b-a16e configs and phi3-mini-3.8b reduced to its
+  head_dim of 96 (the ``model`` fixture's params; granite and llama have 4
+  query heads per kv head, internvl2 2, musicgen and phi3 none shared; the
+  last six an untied LM head; mixtral and scout mixtures of experts); and
+  ``prefill_packed`` at gemma2-9b reduced to its head_dim of 256 and an
+  8-token window (local/global pairs, both softcaps), against the
+  reference's and against each segment's solo ``prefill``.
 - Engine layer: the port's packed engine against ``repro.core.engine`` on
   one mixed hit/miss trace (no ``profile()``, so pack formation is
-  deterministic) and against the port's solo engine, at the seven reduced
+  deterministic) and against the port's solo engine, at the eight reduced
   configs (the ``engines`` fixture's params; bfloat16, the MoE configs
   float32: a bf16 route flip may move a whole row, so the MoE layer is held
   in bf16 at the module level, ``tests/test_torch_moe.py``); the copied
@@ -76,7 +79,10 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 SCORE_GATE = 2e-2
 ARCHS = ("qwen1.5-0.5b", "granite-3-8b", "llama3.1-8b", "internvl2-2b",
-         "musicgen-large", "mixtral-8x22b", "llama4-scout-17b-a16e")
+         "musicgen-large", "mixtral-8x22b", "llama4-scout-17b-a16e",
+         "phi3-mini-3.8b")
+# widths a reduced config keeps from its published one: phi3's head_dim 96
+WIDTHS = {"phi3-mini-3.8b": dict(head_dim=96)}
 YES, NO = 5, 9
 
 
@@ -123,6 +129,8 @@ def _qkv(rng, Sq, Sk, H, KV, d):
     ((25, 45, 20), 96, 4, 2, 32, 13, 0.0),    # GQA + SWA + padding tail
     ((7, 80, 9), 112, 2, 1, 32, 5, 30.0),     # everything, skewed lengths
     ((40, 30, 20), 128, 8, 2, 128, 0, 0.0),   # granite: head_dim 128, G = 4
+    ((40, 30, 20), 96, 4, 4, 96, 0, 0.0),     # phi3: head_dim 96, MHA
+    ((25, 45, 20), 96, 4, 2, 256, 13, 50.0),  # gemma2: 256, G 2, SWA, cap
 ])
 def test_segmented_plain_matches_pallas_and_ref(lens, S, H, KV, d, window,
                                                 softcap, dtype):
@@ -156,6 +164,8 @@ def test_segmented_plain_matches_pallas_and_ref(lens, S, H, KV, d, window,
     ((48, 32), (25, 13), 40, 48, 4, 2, 32, 13, 0.0),         # GQA + SWA
     ((16, 64), (33, 30), 64, 64, 8, 2, 32, 0, 50.0),         # softcap
     ((32, 16, 48), (20, 30, 10), 60, 64, 8, 2, 128, 0, 0.0),  # d 128, G 4
+    ((32, 0, 48), (20, 30, 10), 64, 48, 4, 4, 96, 0, 0.0),   # phi3: d 96
+    ((48, 32), (25, 13), 40, 48, 4, 2, 256, 13, 50.0),       # gemma2: 256
 ])
 def test_positioned_plain_matches_pallas_and_ref(plens, slens, S, pmax, H, KV,
                                                  d, window, softcap, dtype):
@@ -389,7 +399,8 @@ def _np_tree(jcfg, seed: int = 0):
 
 @pytest.fixture(scope="module", params=ARCHS)
 def model(request):
-    over = dict(hybrid_chunk=0, dtype="float32", param_dtype="float32")
+    over = dict(hybrid_chunk=0, dtype="float32", param_dtype="float32",
+                **WIDTHS.get(request.param, {}))
     jcfg = j_reduce_config(j_get_config(request.param), **over)
     tcfg = reduce_config(get_config(request.param), **over)
     tree = _np_tree(jcfg)
@@ -502,6 +513,51 @@ def test_prefill_packed_with_prefix_matches_reference(model):
         np.testing.assert_allclose(_np(got[n]), _np(cold[0]), **F32_TOL)
 
 
+def test_gemma2_prefill_packed_matches_reference():
+    """gemma2's packed prefill: segments longer than the 8-token window,
+    local layers windowed and global ones not, both softcaps; logits and
+    the gathered {local, global} KV pair within 1e-4 of the reference's,
+    and each segment's logits within 1e-4 of its own solo ``prefill`` (the
+    twin of ``tests/test_packed_prefill.py``'s gemma2 case)."""
+    over = dict(hybrid_chunk=0, dtype="float32", param_dtype="float32",
+                head_dim=256, sliding_window=8)
+    jcfg = j_reduce_config(j_get_config("gemma2-9b"), **over)
+    tcfg = reduce_config(get_config("gemma2-9b"), **over)
+    tree = _np_tree(jcfg)
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    tparams = params_from_numpy(tree, tcfg, device="cpu")
+    rng = np.random.default_rng(15)
+    lens, S = (37, 61, 12, 50), 192
+    lay = {k: t.numpy() for k, t in ttfm.packed_layout(
+        [0] * len(lens), lens, S, smax=max(lens)).items()}
+    segs, pos, last = lay["seg_ids"], lay["positions"], lay["last_indices"]
+    toks = np.zeros((1, S), np.int32)
+    off = 0
+    for L in lens:
+        toks[0, off:off + L] = rng.integers(0, tcfg.vocab_size, L)
+        off += L
+    kv_idx = np.nonzero(segs[0] >= 0)[0].astype(np.int32)
+    want, want_kv = jtfm.prefill_packed(
+        jparams, jcfg, jnp.asarray(toks), jnp.asarray(segs),
+        jnp.asarray(pos), jnp.asarray(last), kv_indices=jnp.asarray(kv_idx))
+    got, got_kv = ttfm.prefill_packed(
+        tparams, tcfg, torch.from_numpy(toks).long(), torch.from_numpy(segs),
+        torch.from_numpy(pos), torch.from_numpy(last),
+        kv_indices=torch.from_numpy(kv_idx))
+    np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
+    assert sorted(got_kv) == sorted(want_kv) == [
+        "global_k", "global_v", "local_k", "local_v"]
+    for name in got_kv:
+        np.testing.assert_allclose(_np(got_kv[name]), _np(want_kv[name]),
+                                   **F32_TOL)
+    off = 0
+    for n, L in enumerate(lens):
+        solo, _ = ttfm.prefill(tparams, tcfg, {"tokens": torch.from_numpy(
+            toks[:, off:off + L]).long()})
+        np.testing.assert_allclose(_np(got[n]), _np(solo[0]), **F32_TOL)
+        off += L
+
+
 def test_packed_prefix_layout_ids_and_positions():
     """The engine's layout of a hit over a 2-token prefix beside a miss,
     and the attention's flat ids and positions made from it."""
@@ -529,7 +585,8 @@ def test_packed_prefix_layout_ids_and_positions():
 
 @pytest.fixture(scope="module", params=ARCHS)
 def engines(request):
-    over = dict(hybrid_chunk=0, **_engine_dtype(request.param))
+    over = dict(hybrid_chunk=0, **_engine_dtype(request.param),
+                **WIDTHS.get(request.param, {}))
     jcfg = j_reduce_config(j_get_config(request.param), **over)
     tcfg = reduce_config(get_config(request.param), **over)
     jparams = materialize(jax.random.PRNGKey(0), build(jcfg).defs(),

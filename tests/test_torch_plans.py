@@ -102,7 +102,11 @@ ATTN_SHAPES = [(1, 2048, 16, 2048), (1, 128, 16, 1152), (1, 512, 16, 512),
                # granite-3-8b's 32 query heads: solo miss, solo hit, packed
                # hit, the card tests' head_dim 128 cases
                (1, 2048, 32, 2048), (1, 128, 32, 1152), (1, 512, 32, 4608),
-               (1, 130, 32, 130), (1, 64, 32, 1088), (2, 100, 4, 100)]
+               (1, 130, 32, 130), (1, 64, 32, 1088), (2, 100, 4, 100),
+               # gemma2-9b's 16 heads at its window's S 8192, its solo
+               # hit, and the card tests' head_dim 96 and 256 cases
+               (1, 8192, 16, 8192), (1, 128, 16, 1152), (1, 64, 8, 1088),
+               (1, 130, 8, 130), (1, 8, 4, 8)]
 
 
 @pytest.mark.parametrize("n_sm", [H100_SMS, 114, 8])
@@ -155,7 +159,12 @@ def test_tile_shapes_follow_the_dtype():
 DECODE_SHAPES = [(16, 32768, 16, 16, 64), (8, 32768, 32, 8, 128),
                  (4, 8192, 16, 2, 64), (3, 4100, 16, 2, 64),
                  (2, 4100, 32, 8, 128), (1, 64, 4, 1, 64), (2, 1, 8, 4, 32),
-                 (4, 32768, 4, 4, 64)]
+                 (4, 32768, 4, 4, 64),
+                 # phi3-mini-3.8b's decode (G 1, d 96) at S 32,768 and its
+                 # depth run's 8,192; gemma2-9b's (G 2, d 256) over a full
+                 # cache and its 4096-slot ring
+                 (8, 32768, 32, 32, 96), (8, 8192, 32, 32, 96),
+                 (8, 32768, 16, 8, 256), (8, 4096, 16, 8, 256)]
 
 
 @pytest.mark.parametrize("per_sm", [1, 2, 3, 4, 6, 8])
@@ -201,6 +210,7 @@ def test_decode_split_reads_the_kernels_residency():
 
 @pytest.mark.parametrize("G,dtype,kernel", [
     (1, torch.bfloat16, "gemv"), (2, torch.bfloat16, "tc"),
+    (2, torch.float32, "gemv"),
     (4, torch.bfloat16, "tc"), (8, torch.bfloat16, "tc"),
     (3, torch.bfloat16, "tc"), (1, torch.float32, "gemv"),
     (4, torch.float32, "gemv")])
